@@ -1,0 +1,91 @@
+"""Setup models: the U-Net plus one 1x1 sigmoid head per output dataset,
+instantiated from a net config dict (the contents of a
+``net_config.json``), as in the JAX package's ``models/model.py``.
+
+``Model`` is an ``nn.Module``: ``model(x) -> {name: (N, D, H, W, C)
+fp32}`` for channels-last input ``x``.  Weights come from JAX-layout
+params through ``models/weights.py``.  3D setups only so far.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from .unet import ConvPass, UNet, UNetConfig, compute_output_shape
+from .zoo import get_net_config
+
+
+def head_dims(output_cfg: dict) -> int:
+    """Channel count of an output head; neighborhood wins over 'dims'."""
+    if "neighborhood" in output_cfg:
+        return len(output_cfg["neighborhood"])
+    return output_cfg["dims"]
+
+
+def unet_config(net_config: dict) -> UNetConfig:
+    nc = net_config
+    in_channels = nc.get("in_channels")
+    if in_channels is None:
+        # 'from' models: inputs are prediction channels, concatenated
+        in_channels = sum(i["dims"] for i in nc["inputs"].values())
+    elif "adj_slices" in nc:
+        in_channels = in_channels * nc["adj_slices"]
+    if not nc.get("constant_upsample", True):
+        raise NotImplementedError("transposed-conv upsampling is not ported yet")
+    return UNetConfig(
+        in_channels=in_channels,
+        num_fmaps=nc["num_fmaps"],
+        fmap_inc_factor=nc["fmap_inc_factor"],
+        downsample_factors=nc["downsample_factors"],
+        kernel_size_down=nc["kernel_size_down"],
+        kernel_size_up=nc["kernel_size_up"],
+        num_fmaps_out=nc.get("num_fmaps_out"),
+    )
+
+
+class Model(nn.Module):
+    def __init__(self, net_config: dict, compute_dtype=torch.bfloat16):
+        super().__init__()
+        self.net_config = net_config
+        self.compute_dtype = compute_dtype
+        cfg = unet_config(net_config)
+        self.unet = UNet(cfg)
+        self.heads = nn.ModuleDict(
+            {
+                name: ConvPass(
+                    cfg.out_channels, head_dims(out), [(1,) * cfg.dims], "sigmoid"
+                )
+                for name, out in net_config["outputs"].items()
+            }
+        )
+
+    @classmethod
+    def from_setup(cls, name_or_path: str, **kw) -> "Model":
+        return cls(get_net_config(name_or_path), **kw)
+
+    @property
+    def unet_config(self) -> UNetConfig:
+        return self.unet.cfg
+
+    @property
+    def dims(self) -> int:
+        return len(self.net_config["input_shape"])
+
+    @property
+    def input_shape(self) -> tuple:
+        return tuple(self.net_config["input_shape"])
+
+    def forward(self, x) -> dict:
+        """x: (N, D, H, W, C).  Returns ``{output name: fp32 (N, D', H',
+        W', C_head)}``; convolutions run in ``compute_dtype``."""
+        spatial = tuple(x.shape[1:-1])
+        try:
+            compute_output_shape(self.unet_config, spatial)
+        except ValueError as e:
+            raise ValueError(
+                f"input spatial shape {spatial} is invalid for this setup "
+                f"({e}); the standard tile is {self.input_shape}"
+            ) from None
+        z = self.unet(x.to(self.compute_dtype))
+        return {name: head(z).float() for name, head in self.heads.items()}

@@ -1,0 +1,193 @@
+"""Predictor machinery: a host reader thread, a one-deep dispatch/drain
+loop and ROI-clipped tile writes (the JAX package's
+``predict/_pipeline.py``).
+
+``run_pipelined`` keeps one item in flight: item i+1 is dispatched before
+item i is drained, so the device computes i+1 while the host waits for
+i's outputs and writes them.  ``DeviceIO`` supplies the CUDA side of it:
+pinned host buffers for both copies and one side stream, so a dispatch
+returns as soon as its work is queued.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Dict, Iterable, Sequence
+
+import numpy as np
+import torch
+
+from ..core.arrays import Array
+from ..core.geometry import Coordinate, Roi
+from ..models.model import head_dims
+
+
+def normalize_raw(raw: np.ndarray) -> np.ndarray:
+    """uint8/uint16 -> float32 in [0,1]; float passes through as float32."""
+    if raw.dtype == np.uint8:
+        return raw.astype(np.float32) / 255.0
+    if raw.dtype == np.uint16:
+        return raw.astype(np.float32) / 65535.0
+    if np.issubdtype(raw.dtype, np.floating):
+        return raw.astype(np.float32)
+    raise ValueError(f"unsupported raw dtype {raw.dtype}")
+
+
+def make_tile_reader(inputs: Sequence[Array], context, is_image: bool):
+    """Per-tile host reader: the channels-last concat of all inputs over the
+    context-grown ROI, reflect-padded outside the volume.
+
+    When every input is stored uint8, tiles ship as raw bytes (4x less
+    host->device traffic than float32) and the predictor normalises on the
+    device with the same float32 arithmetic."""
+    device_norm = all(a.dtype == np.uint8 for a in inputs)
+
+    def read_tile(write_roi: Roi) -> np.ndarray:
+        read_roi = write_roi.grow(context, context)
+        chans = []
+        for arr in inputs:
+            x = arr.to_ndarray(read_roi, pad_mode="reflect")
+            if not device_norm:
+                x = normalize_raw(x)
+            x = x[..., None] if x.ndim == 3 else np.moveaxis(x, 0, -1)
+            chans.append(x)
+        x = np.concatenate(chans, axis=-1)
+        if is_image and not device_norm:
+            x = x * 2.0 - 1.0
+        return np.ascontiguousarray(x)
+
+    return read_tile
+
+
+def run_pipelined(
+    items: Iterable,
+    read: Callable,
+    dispatch: Callable,
+    drain: Callable,
+) -> None:
+    """Reader thread + one-deep dispatch pipeline.
+
+    ``read(item)`` runs on a reader thread (exceptions re-raise here).
+    ``dispatch(host_array)`` queues the device work and returns a handle;
+    ``drain(item, handle)`` runs one step behind it, and once more for the
+    final item."""
+    q: queue.Queue = queue.Queue(maxsize=2)
+    stop = threading.Event()
+
+    def put(obj) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(obj, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def reader():
+        try:
+            for it in items:
+                if not put((it, read(it))):
+                    return
+            put(None)
+        except Exception as e:  # re-raised by the consumer loop
+            put(e)
+
+    thread = threading.Thread(target=reader, daemon=True)
+    thread.start()
+    pending = None
+    try:
+        while True:
+            got = q.get()
+            if got is None:
+                break
+            if isinstance(got, Exception):
+                raise got
+            item, host_arr = got
+            handle = dispatch(host_arr)
+            if pending is not None:
+                drain(*pending)
+            pending = (item, handle)
+        if pending is not None:
+            drain(*pending)
+    finally:
+        stop.set()
+        thread.join()
+
+
+class DeviceIO:
+    """Pinned staging buffers and a side stream for one device.
+
+    Two slots alternate; under the one-deep pipeline slot ``i % 2`` is free
+    again when item ``i + 2`` is dispatched, because item ``i`` has been
+    drained by then (its event waited for)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._slots = [{}, {}]
+        self._next = 0
+
+    def _buffer(self, slot: dict, key, shape, dtype) -> torch.Tensor:
+        buf = slot.get(key)
+        if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+            slot[key] = buf
+        return buf
+
+    def run(self, host_arr: np.ndarray, fn: Callable):
+        """Upload ``host_arr``, run ``fn`` on the side stream, queue the
+        downloads of its dict of outputs.  Returns ``(event, outputs)``:
+        the pinned outputs are valid once the event has completed."""
+        slot = self._slots[self._next]
+        self._next ^= 1
+        src = torch.from_numpy(host_arr)
+        staged = self._buffer(slot, "in", src.shape, src.dtype)
+        staged.copy_(src)
+        # order after work queued on the caller's stream (the weights'
+        # upload and cast when the model was moved to the device)
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            outs = fn(staged.to(self.device, non_blocking=True))
+            host = {}
+            for k, v in outs.items():
+                host[k] = self._buffer(slot, k, v.shape, v.dtype)
+                host[k].copy_(v, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return event, host
+
+
+class TileWriter:
+    """ROI-clipped writes of per-tile model outputs.
+
+    ``outputs`` maps head name -> destination Array; ``outputs_cfg`` is the
+    model's ``net_config["outputs"]`` (for the per-head channel count)."""
+
+    def __init__(
+        self,
+        outputs: Dict[str, Array],
+        outputs_cfg: Dict[str, dict],
+        voxel_size: Coordinate,
+    ):
+        self.outputs = outputs
+        self.dims = {k: head_dims(cfg) for k, cfg in outputs_cfg.items()}
+        self.voxel_size = voxel_size
+
+    def drain_batch(self, batch_tiles: Sequence[Roi], outs: Dict) -> None:
+        """Write every tile of one batch of host outputs
+        (``outs[name]``: (B, D, H, W, C))."""
+        for j, wroi in enumerate(batch_tiles):
+            for name, arr in self.outputs.items():
+                pred = np.moveaxis(np.asarray(outs[name][j]), -1, 0)
+                dest = wroi.intersect(arr.roi)
+                if dest.empty:
+                    continue
+                sl = tuple(
+                    slice(int(a), int(a + s))
+                    for a, s in zip(
+                        (dest.begin - wroi.begin) / self.voxel_size,
+                        Coordinate(dest.shape) / self.voxel_size,
+                    )
+                )
+                arr[dest] = pred[(slice(None),) + sl][: self.dims[name]]

@@ -1,0 +1,195 @@
+"""Sliding-window prediction over world-unit Zarr volumes (the JAX
+package's ``predict/scan.py``).
+
+- The output ROI is tiled by the net's output size; edge tiles shift
+  inward so every tile is full-sized.
+- Reads grow each write tile by the context ((input-output)/2) and
+  reflect-pad outside the volume.
+- uint8 tiles are uploaded as bytes and normalised on the device in fp32
+  (to [-1, 1] for image inputs); outputs are written as
+  ``round(clamp(y, 0, 1) * 255)`` uint8 (``torch.round`` rounds half to
+  even, like ``jnp.round``; the clamp comes before the cast).
+- The next tile's host read and the previous tile's download and write
+  overlap the device's compute (``_pipeline.run_pipelined``).
+
+The tile is the net config's ``input_shape + shape_increase``: the JAX
+package's ``auto_shape_increase`` encodes a TPU v5e memory model and is
+not ported.  3D setups only so far.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.arrays import Array, prepare_ds
+from ..core.geometry import Coordinate, Roi
+from ..models.model import Model, head_dims
+from ..models.unet import compute_output_shape
+from ._pipeline import DeviceIO, TileWriter, make_tile_reader, run_pipelined
+
+
+def shrink_shape_increase(model: Model, volume_vox_shape) -> list:
+    """The net config's ``shape_increase``, shrunk (possibly below zero) so
+    one output tile fits inside the volume, in pooling-product steps,
+    keeping the shrunk input/output pair valid for the net's conv
+    arithmetic."""
+    nc = model.net_config
+    dims = model.dims
+    base_in = list(nc["input_shape"])
+    base_out = list(nc["output_shape"])
+    inc = list(nc.get("shape_increase", [0] * dims))
+    vol = list(volume_vox_shape)[-dims:]
+    step = [1] * dims
+    for f in nc["downsample_factors"]:
+        step = [a * b for a, b in zip(step, f)]
+
+    def valid(cand):
+        ishape = [a + b for a, b in zip(base_in, cand)]
+        oshape = [a + b for a, b in zip(base_out, cand)]
+        if any(o < 1 for o in oshape):
+            return False
+        try:
+            got = compute_output_shape(model.unet_config, tuple(ishape))
+        except ValueError:
+            return False
+        return list(got) == oshape
+
+    for d in range(dims):
+        while base_out[d] + inc[d] > vol[d]:
+            cand = list(inc)
+            cand[d] -= step[d]
+            if not valid(cand):
+                break
+            inc = cand
+    return inc
+
+
+def tile_rois(total: Roi, tile_size: Coordinate) -> list:
+    """Cover ``total`` with full-sized tiles; edge tiles shift inward, so
+    they overlap their neighbour (z-major order)."""
+    starts_per_dim = []
+    for b, e, t in zip(total.begin, total.end, tile_size):
+        starts = list(range(b, e - t + 1, t)) or [b]
+        if starts[-1] + t < e:
+            starts.append(e - t)
+        starts_per_dim.append(starts)
+    return [
+        Roi(Coordinate(start), tile_size)
+        for start in itertools.product(*starts_per_dim)
+    ]
+
+
+class Predictor:
+    """Tiled inference for one 3D setup on one device.
+
+    ``model`` holds the weights (``models.weights.load_params``); it is
+    moved to ``device`` and cast to ``compute_dtype`` here."""
+
+    def __init__(
+        self,
+        model: Model,
+        voxel_size,
+        shape_increase: Optional[Sequence[int]] = None,
+        device=None,
+        compute_dtype=torch.bfloat16,
+    ):
+        if model.dims != 3:
+            raise NotImplementedError("the port predicts with 3D setups only so far")
+        self.device = resolve_device(device)
+        self.voxel_size = Coordinate(voxel_size)
+        nc = model.net_config
+        inc = (
+            list(shape_increase)
+            if shape_increase is not None
+            else list(nc.get("shape_increase", [0] * len(nc["input_shape"])))
+        )
+        self.input_tile = tuple(a + b for a, b in zip(nc["input_shape"], inc))
+        self.output_tile = tuple(a + b for a, b in zip(nc["output_shape"], inc))
+        self.input_size = Coordinate(self.input_tile) * self.voxel_size
+        self.output_size = Coordinate(self.output_tile) * self.voxel_size
+        self.context = (self.input_size - self.output_size) / 2
+        model.compute_dtype = compute_dtype
+        self.model = model.to(device=self.device, dtype=compute_dtype).eval()
+        self._is_image = "raw" in nc.get("inputs", {"raw": {}})
+        self._io = DeviceIO(self.device) if self.device.type == "cuda" else None
+
+    @torch.no_grad()
+    def forward(self, x) -> dict:
+        """A batch of input tiles on the device -> uint8 outputs per head."""
+        if x.dtype == torch.uint8:
+            x = x.to(torch.float32) / 255.0
+            if self._is_image:
+                x = x * 2.0 - 1.0
+        outs = self.model(x)
+        return {
+            k: torch.round(torch.clamp(v, 0, 1) * 255).to(torch.uint8)
+            for k, v in outs.items()
+        }
+
+    def _dispatch(self, host_arr: np.ndarray):
+        if self._io is None:
+            return None, self.forward(torch.from_numpy(host_arr))
+        return self._io.run(host_arr, self.forward)
+
+    def predict(self, raw, outputs: Dict[str, Array], roi: Optional[Roi] = None) -> dict:
+        """Run inference over ``roi`` (default: the outputs' ROI), writing
+        into ``outputs``.  ``raw`` is one Array or a list whose channels are
+        concatenated.  Returns tile count, seconds and output voxels/s."""
+        inputs = raw if isinstance(raw, (list, tuple)) else [raw]
+        total = roi if roi is not None else next(iter(outputs.values())).roi
+        tiles = tile_rois(total, self.output_size)
+        t0 = time.perf_counter()
+        read_tile = make_tile_reader(inputs, self.context, self._is_image)
+        writer = TileWriter(outputs, self.model.net_config["outputs"], self.voxel_size)
+
+        def drain(tile, handle):
+            event, outs = handle
+            if event is not None:
+                event.synchronize()
+            writer.drain_batch([tile], {k: v.cpu().numpy() for k, v in outs.items()})
+
+        run_pipelined(
+            tiles,
+            read=lambda t: read_tile(t)[None],
+            dispatch=self._dispatch,
+            drain=drain,
+        )
+        dt = time.perf_counter() - t0
+        out_voxels = sum(
+            int(np.prod(np.asarray(t.shape) // np.asarray(self.voxel_size)))
+            for t in tiles
+        )
+        return {"tiles": len(tiles), "seconds": dt, "voxels_per_sec": out_voxels / dt}
+
+
+def prepare_prediction_outputs(
+    container: str,
+    model: Model,
+    roi: Roi,
+    voxel_size,
+    predictor: Predictor,
+    dataset_prefix: str = "",
+) -> Dict[str, Array]:
+    """Create uint8 output Zarrs for each model output over ``roi``, chunked
+    to the predictor's output tile."""
+    vs = Coordinate(voxel_size)
+    out = {}
+    vox_shape = tuple(Coordinate(roi.shape) / vs)
+    for name, ocfg in model.net_config["outputs"].items():
+        dims = head_dims(ocfg)
+        ds_name = f"{dataset_prefix}{name}" if dataset_prefix else name
+        out[name] = prepare_ds(
+            f"{container}/{ds_name}",
+            shape=(dims, *vox_shape),
+            offset=roi.offset,
+            voxel_size=vs,
+            dtype=np.uint8,
+            chunk_shape=(dims, *predictor.output_tile),
+        )
+    return out
