@@ -94,8 +94,23 @@ extern "C" long long bs_seed_maxima_smem_bytes(int size) {
          static_cast<long long>(sizeof(float));
 }
 
+// Once per device, before the first launch: lets the kernel use the
+// device's whole opt-in shared memory, so that no launch sets it.
+// Returns a cudaError_t.
+extern "C" int bs_seed_maxima_init() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFuncSetAttribute(
+      seed_maxima_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin));
+}
+
 // dist: (Z, H, W) fp32, mask: (Z, H, W) uint8, out: (Z, H, W) uint8, all
-// contiguous.  Returns the cudaError_t of the launches.
+// contiguous.  Returns the cudaError_t of the launches (a window too large
+// for shared memory fails the launch).
 extern "C" int bs_seed_maxima(const float* dist, const uint8_t* mask,
                               uint8_t* out, int Z, int H, int W, int size,
                               void* stream) {
@@ -104,10 +119,7 @@ extern "C" int bs_seed_maxima(const float* dist, const uint8_t* mask,
   const int left = size / 2;
   const int right = size - 1 - left;
   const long long smem = bs_seed_maxima_smem_bytes(size);
-  cudaError_t err = cudaFuncSetAttribute(
-      seed_maxima_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int z0 = 0; z0 < Z; z0 += MAX_GRID_Z) {
     const int nz = Z - z0 < MAX_GRID_Z ? Z - z0 : MAX_GRID_Z;

@@ -30,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv3d import conv3d
+from ..ops.conv3d import conv3d, pack_weights, to_channels_last
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +83,9 @@ class UNetConfig:
         return tuple(factors[::-1])
 
 
-_ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid}
+# in place, on tensors this module has just made: a conv output keeps the
+# layout ``ops.conv3d.empty_channels_last`` gave it
+_ACTIVATIONS = {"relu": torch.relu_, "sigmoid": torch.sigmoid_}
 
 
 def center_crop(x, target_spatial: Sequence[int]):
@@ -95,27 +97,56 @@ def center_crop(x, target_spatial: Sequence[int]):
 
 
 class Conv(nn.Module):
-    """One conv's parameters: ``w`` (kd, kh, kw, Ci, Co), ``b`` (Co)."""
+    """One conv's parameters: ``w`` (kd, kh, kw, Ci, Co), ``b`` (Co), in
+    the JAX layout; the conv kernel's packed form of ``w`` is kept beside
+    it (``packed``) and is no part of the state dict."""
 
     def __init__(self, kernel: Sequence[int], in_ch: int, out_ch: int):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(*kernel, in_ch, out_ch))
         self.b = nn.Parameter(torch.zeros(out_ch))
+        self._packed = {}
+        self._packed_of = None
+
+    def packed(self, dtype, lo: int = 0, hi: Optional[int] = None):
+        """``pack_weights`` of the input-channel slice ``[lo, hi)`` of
+        ``w`` for ``dtype``, made once per (parameter version, storage,
+        dtype, device, slice): an in-place update of ``w``
+        (``load_state_dict``) or a move (``.to``) drops what was packed."""
+        w = self.w
+        of = self._packed_of  # (the tensor packed from, its version then)
+        if (
+            of is None
+            or of[1] != w._version
+            or of[0].data_ptr() != w.data_ptr()
+            or of[0].dtype != w.dtype
+            or of[0].device != w.device
+        ):
+            # holding the tensor keeps its storage, so that no later
+            # parameter can come to lie at the same address unnoticed
+            self._packed, self._packed_of = {}, (w.detach(), w._version)
+        key = (dtype, lo, hi)
+        if key not in self._packed:
+            self._packed[key] = pack_weights(w.detach()[..., lo:hi, :], dtype)
+        return self._packed[key]
 
 
 def conv_split(xs, conv: Conv, relu: bool = False):
     """Conv over the implicit channel concat of ``xs``: the sum of per-part
     convs with channel-split weights (the bias enters with the first)."""
-    if len(xs) == 1:
-        return conv3d(xs[0], conv.w, conv.b, relu=relu)
     off = 0
     y = None
     for x in xs:
         c = x.shape[-1]
-        part = conv3d(x, conv.w[..., off : off + c, :], conv.b if y is None else None)
-        y = part if y is None else y + part
+        w = conv.w if len(xs) == 1 else conv.w[..., off : off + c, :]
+        part = conv3d(
+            x, w, conv.b if y is None else None, relu=relu and len(xs) == 1,
+            pack=lambda x=x, lo=off, hi=off + c: conv.packed(x.dtype, lo, hi),
+        )
+        # in place: the first part's output keeps its 16-byte voxel lines
+        y = part if y is None else y.add_(part)
         off += c
-    return torch.relu(y) if relu else y
+    return torch.relu_(y) if relu and len(xs) > 1 else y
 
 
 class ConvPass(nn.Module):
@@ -146,7 +177,7 @@ class ConvPass(nn.Module):
         # the 1x1 residual commutes with the centre crop: crop first
         target = out.shape[1:-1]
         res = conv_split([center_crop(x, target) for x in xs], self.residual)
-        return act(out + res)
+        return act(out.add_(res))
 
 
 def max_pool(x, factors: Sequence[int]):
@@ -157,7 +188,7 @@ def max_pool(x, factors: Sequence[int]):
                 f"by {tuple(factors)}: dim {d} not divisible"
             )
     y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), tuple(factors), tuple(factors))
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    return to_channels_last(y)
 
 
 def upsample_resize(x, factors: Sequence[int]):
@@ -167,7 +198,7 @@ def upsample_resize(x, factors: Sequence[int]):
     y = F.interpolate(
         x.permute(0, 4, 1, 2, 3), size=size, mode="trilinear", align_corners=False
     )
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    return to_channels_last(y)
 
 
 def crop_to_factor(x, factor, kernel_sizes):

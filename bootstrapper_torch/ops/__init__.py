@@ -13,13 +13,21 @@ def launch_counts() -> dict:
     }
 
 
+def conv3d_kernel_launches() -> dict:
+    """The conv kernel's CUDA launches since the last reset, by conv:
+    ``(x shape, w shape) -> count``."""
+    return dict(conv3d.KERNEL_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     for counts in (conv3d.COUNTS, seeds.COUNTS):
         for k in counts:
             counts[k] = 0
+    conv3d.KERNEL_LAUNCHES.clear()
 
 
 __all__ = [
+    "conv3d_kernel_launches",
     "conv3d_supported",
     "launch_counts",
     "reset_launch_counts",

@@ -3,15 +3,20 @@
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into
 ``_build/lib<name>.so``, a shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds).  ``build_all`` starts one
-``nvcc`` per stale source, all at once, and waits for every one.  The
-target is ``sm_90a`` (Hopper).  Nothing here runs when the package is
-imported; a build failure raises with the compiler's output.
+``nvcc`` per stale source, all at once, and waits for every one.  A
+library is stale when its source, or any file under ``csrc/`` that the
+source includes (``#include "..."``, followed recursively), is newer.
+The target is ``sm_90a`` (Hopper; ``wgmma`` needs the ``a``).  Nothing
+here runs when the package is imported; a build failure raises with the
+compiler's output, and ``LOGS`` keeps the output of the builds that
+succeeded (ptxas' register and spill report, warnings).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,8 +27,12 @@ BUILD = os.path.join(_PKG, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 SOURCES = ("conv3d", "seed_maxima")
 
+#: compiler output of each build made by this process, by source name
+LOGS: dict = {}
+
 _LOCK = threading.Lock()
 _LIBS: dict = {}
+_INCLUDE_RE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def nvcc_path() -> str | None:
@@ -38,12 +47,28 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD, f"lib{name}.so")
 
 
+def source_files(name: str, csrc: str | None = None) -> list:
+    """``<name>.cu`` and every file under ``csrc`` it includes with
+    ``#include "..."``, directly or through another such file."""
+    csrc = CSRC if csrc is None else csrc
+    todo, seen = [os.path.join(csrc, f"{name}.cu")], []
+    while todo:
+        path = todo.pop()
+        if path in seen or not os.path.exists(path):
+            continue
+        seen.append(path)
+        with open(path) as f:
+            for inc in _INCLUDE_RE.findall(f.read()):
+                todo.append(os.path.normpath(os.path.join(os.path.dirname(path), inc)))
+    return seen
+
+
 def _stale(name: str) -> bool:
     out = lib_path(name)
     if not os.path.exists(out):
         return True
-    src = os.path.join(CSRC, f"{name}.cu")
-    return os.path.getmtime(out) < os.path.getmtime(src)
+    built = os.path.getmtime(out)
+    return any(built < os.path.getmtime(src) for src in source_files(name))
 
 
 def build_all(names=SOURCES) -> None:
@@ -63,7 +88,7 @@ def build_all(names=SOURCES) -> None:
     for name in todo:
         tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
         cmd = [
-            nvcc, ARCH, "-std=c++17", "-O3", "-lineinfo", "-shared",
+            nvcc, ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
             "-Xcompiler", "-fPIC", "-o", tmp, os.path.join(CSRC, f"{name}.cu"),
         ]
         procs[name] = (
@@ -78,6 +103,7 @@ def build_all(names=SOURCES) -> None:
         logs[name] = proc.communicate()[0]
         if proc.returncode == 0:
             os.replace(tmp, lib_path(name))
+            LOGS[name] = logs[name]
         else:
             failed.append(name)
             if os.path.exists(tmp):

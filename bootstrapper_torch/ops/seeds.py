@@ -79,7 +79,7 @@ def _seed_maxima_cuda(dist, mask, size):
     out = torch.empty((z, h, w), dtype=torch.uint8, device=dist.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    lib = _lib(dist.device)
     with torch.cuda.device(dist.device):
         stream = torch.cuda.current_stream(dist.device).cuda_stream
         err = lib.bs_seed_maxima(
@@ -91,12 +91,26 @@ def _seed_maxima_cuda(dist, mask, size):
     return out
 
 
-def _lib():
+_INITIALISED: set = set()
+
+
+def _lib(device):
+    """The built library; on first use per device the kernel is given the
+    device's opt-in shared memory (once, not per launch)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.load(
+    lib = _build.load(
         "seed_maxima",
         {
             "bs_seed_maxima": ([p, p, p, i, i, i, i, p], i),
             "bs_seed_maxima_smem_bytes": ([i], ctypes.c_longlong),
+            "bs_seed_maxima_init": ([], i),
         },
     )
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _INITIALISED:
+        with torch.cuda.device(index):
+            err = lib.bs_seed_maxima_init()
+        if err != 0:
+            raise RuntimeError(f"seed kernel set-up failed: cudaError {err}")
+        _INITIALISED.add(index)
+    return lib

@@ -6,18 +6,24 @@
 Phases, each printing one JSON line:
 
 (a) doctor: torch/CUDA versions, the device, nvcc; the kernels are built
-    from ``bootstrapper_torch/csrc`` (one nvcc per source, in parallel);
+    from ``bootstrapper_torch/csrc`` (one nvcc per source, in parallel),
+    and each conv kernel instantiation reports its registers, shared
+    memory and spill bytes;
 (b) every kernel against its plain PyTorch version on the card, at the
-    shapes the main path gives it: the conv kernel (K1) at four U-Net
-    shapes in bf16, the seed kernel (K2, and K3 as its Z=1 case)
-    bit-exact.  Each with its time, the plain version's, the library
-    call's where one exists, and the least time the card could take;
+    shapes the main path gives it: the conv kernel (K1) at all eleven
+    U-Net shapes of one tile in bf16 (the wgmma kernel) and at one shape
+    in fp32 (the FMA kernel), the seed kernel (K2, and K3 as its Z=1
+    case) bit-exact, also on a CREMI-sized stack.  Each with its device
+    time (profiler device events, not the Python call), the plain
+    version's, the library call's where one exists, and the least time
+    the card could take;
 (c) the main path through the user entry points: a synthetic uint8 raw
     volume (made from --seed) as an uncompressed Zarr, the full-width
     3d_affs setup with numpy-seeded weights saved as a checkpoint,
     ``run_prediction`` over 2x2x2 output tiles (8, 640, 640) in bf16, then
     ``run_segmentation`` in ws mode.  Launch counts are zeroed just before
-    each entry point and read just after; both kernels must have run;
+    each entry point and read just after; both kernels must have run,
+    the conv kernel once per tile at each of its eleven shapes;
 (d) reference checks on a small input: the forward on the card (fp32 and
     bf16) against the CPU fp32 forward, and the segmentation with seeds
     on the card against the CPU path; then one full-size tile forward
@@ -56,6 +62,10 @@ _JAX_PKG = "bootstrapper" + "_tpu"
 # in another order, so they differ by at most ~1 bf16 ulp (2^-8 rel)
 CONV_RTOL = 2.0**-6
 CONV_ATOL = 2.0**-6
+# fp32 kernel vs plain: both sum 8100 fp32 products in fp32, in another
+# order, into outputs of magnitude up to ~5 (ulp 5e-7): tens of ulps
+# (2.5e-5 was read on an H100; TF32 products would be off by ~1e-3)
+CONV_ATOL_FP32 = 1e-4
 # forward on the card vs the CPU fp32 forward, on sigmoid outputs in
 # [0, 1]: fp32 differs only by summation order; bf16 rounds every layer
 FWD_ATOL_FP32 = 1e-4
@@ -91,6 +101,30 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time_ms(fn, iters: int = 10) -> float:
+    """Mean time the device spends in the kernels and copies of ``fn``, from
+    ``torch.profiler`` device events over ``iters`` calls after one
+    warm-up call; the host's time to enqueue them is not in it.  Raises
+    where the profiler saw no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        ev.time_range.elapsed_us()
+        for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+    )
+    if not us:
+        raise RuntimeError("torch.profiler recorded no device event")
+    return us / 1e3 / iters
+
+
 def bound(flops: float, peak_flops: float, nbytes: float):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -101,40 +135,68 @@ def bound(flops: float, peak_flops: float, nbytes: float):
 
 
 def conv_cases():
-    """Main-path conv shapes (full-width 3d_affs, (32,412,412) input
-    tile): name, input shape, crop of it, weight shape, with bias.  None
-    fuses a ReLU, so each computes what one F.conv3d call computes."""
+    """The eleven convs one (32,412,412) tile of the full-width 3d_affs
+    net sends to the kernel: name, input shape, centre crop of it (a
+    strided view, as the net passes it), weight shape, with bias.  Each is
+    launched once per tile.  None fuses a ReLU here, so each computes what
+    one F.conv3d call computes."""
     return [
-        # level-2 encoder conv, 300 -> 300, 3x3x3 (the pass's last conv)
-        ("enc2_300to300_k3", (1, 22, 98, 98, 300), None, (3, 3, 3, 300, 300), True),
-        # level-1 decoder conv: the upsampled 300-channel part of its
-        # 360-channel input (the bias rides on the 60-channel part)
-        ("dec1_part300to60_k3", (1, 12, 168, 168, 300), None, (3, 3, 3, 300, 60), False),
-        # level-2 decoder residual: the 1500-channel part, 1x1, applied to
-        # the centre crop (a strided view) of the (16,88,88) input
-        ("dec2_res_part1500to300_k1", (1, 16, 88, 88, 1500), (12, 84, 84), (1, 1, 1, 1500, 300), False),
-        # level-3 encoder conv, 1500 -> 1500, 3x3x3: the most operations
-        ("enc3_1500to1500_k3", (1, 18, 46, 46, 1500), None, (3, 3, 3, 1500, 1500), True),
+        ("enc2_c1_300to300_k3", (1, 22, 98, 98, 300), None, (3, 3, 3, 300, 300), True),
+        ("enc3_c0_300to1500_k3", (1, 20, 48, 48, 300), None, (3, 3, 3, 300, 1500), True),
+        ("enc3_c1_1500to1500_k3", (1, 18, 46, 46, 1500), None, (3, 3, 3, 1500, 1500), True),
+        ("enc3_res_300to1500_k1", (1, 20, 48, 48, 300), (16, 44, 44), (1, 1, 1, 300, 1500), True),
+        # decoder convs over [skip, upsampled]: one launch per part; the
+        # skip is a crop of the encoder's output, the bias rides on it
+        ("dec2_c0_skip300to300_k3", (1, 18, 94, 94, 300), (16, 88, 88), (3, 3, 3, 300, 300), True),
+        ("dec2_c0_up1500to300_k3", (1, 16, 88, 88, 1500), None, (3, 3, 3, 1500, 300), False),
+        ("dec2_c1_300to300_k3", (1, 14, 86, 86, 300), None, (3, 3, 3, 300, 300), True),
+        ("dec2_res_skip300to300_k1", (1, 18, 94, 94, 300), (12, 84, 84), (1, 1, 1, 300, 300), True),
+        ("dec2_res_up1500to300_k1", (1, 16, 88, 88, 1500), (12, 84, 84), (1, 1, 1, 1500, 300), False),
+        ("dec1_c0_up300to60_k3", (1, 12, 168, 168, 300), None, (3, 3, 3, 300, 60), False),
+        ("dec1_res_up300to60_k1", (1, 12, 168, 168, 300), (8, 164, 164), (1, 1, 1, 300, 60), False),
     ]
+
+
+def conv_inputs(gen, xs, crop, ws, with_bias, dtype):
+    import torch
+
+    from bootstrapper_torch.models.unet import center_crop
+    from bootstrapper_torch.ops.conv3d import empty_channels_last
+
+    # in the layout the U-Net's ops give their outputs (16-byte voxel lines)
+    x = empty_channels_last(xs, dtype, "cuda")
+    x.copy_(torch.randn(xs, generator=gen, device="cuda"))
+    if crop is not None:
+        x = center_crop(x, crop)
+    fan_in = ws[0] * ws[1] * ws[2] * ws[3]
+    w = (torch.randn(ws, generator=gen, device="cuda") / fan_in**0.5).to(dtype)
+    b = torch.randn(ws[-1], generator=gen, device="cuda").to(dtype) if with_bias else None
+    return x, w, b
+
+
+def conv_work(x, w, b, out):
+    """(operations, bytes) of one conv: 2 per multiply-add; every operand
+    read once (a cropped view counts its own voxels) and the output
+    written once."""
+    item = x.element_size()
+    fan_in = w.shape[0] * w.shape[1] * w.shape[2] * w.shape[3]
+    flops = 2.0 * (out.numel() // w.shape[-1]) * w.shape[-1] * fan_in
+    nbytes = item * (x.numel() + w.numel() + out.numel() + (0 if b is None else b.numel()))
+    return flops, float(nbytes)
 
 
 def check_conv(seed: int) -> list:
     import torch
     import torch.nn.functional as F
 
-    from bootstrapper_torch.models.unet import center_crop
     from bootstrapper_torch.ops import conv3d as C
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for name, xs, crop, ws, with_bias in conv_cases():
-        x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16)
-        if crop is not None:
-            x = center_crop(x, crop)
-        fan_in = ws[0] * ws[1] * ws[2] * ws[3]
-        w = (torch.randn(ws, generator=gen, device="cuda") / fan_in**0.5).to(torch.bfloat16)
-        b = torch.randn(ws[-1], generator=gen, device="cuda").to(torch.bfloat16) if with_bias else None
-        got = C.conv3d_cuda(x, w, b)
+        x, w, b = conv_inputs(gen, xs, crop, ws, with_bias, torch.bfloat16)
+        packed = C.pack_weights(w, x.dtype)  # once, as the U-Net keeps it
+        got = C.conv3d_cuda(x, w, b, packed=packed)
         ref = C.conv3d_plain(x, w, b)
         torch.cuda.synchronize()
         diff = (got.float() - ref.float()).abs()
@@ -142,28 +204,65 @@ def check_conv(seed: int) -> list:
         ok = bool((diff <= CONV_ATOL + CONV_RTOL * ref.float().abs()).all())
         if not ok:
             raise AssertionError(f"conv kernel {name}: max |err| {err} outside tolerance")
-        xp = x.permute(0, 4, 1, 2, 3)
+        xp = x.contiguous().permute(0, 4, 1, 2, 3)  # dense, for the library
         wp = w.permute(4, 3, 0, 1, 2).contiguous()
-        ms = cuda_time_ms(lambda: C.conv3d_cuda(x, w, b))
-        plain_ms = cuda_time_ms(lambda: C.conv3d_plain(x, w, b), iters=3)
-        library_ms = cuda_time_ms(lambda: F.conv3d(xp, wp, b))
-        out_vox = got.numel() // ws[-1]
-        flops = 2.0 * out_vox * ws[-1] * fan_in
-        nbytes = 2.0 * (x.numel() + w.numel() + got.numel()) + (
-            0 if b is None else 2.0 * b.numel()
-        )
+        ms = device_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed))
+        plain_ms = device_time_ms(lambda: C.conv3d_plain(x, w, b), iters=2)
+        library_ms = device_time_ms(lambda: F.conv3d(xp, wp, b))
+        flops, nbytes = conv_work(x, w, b, got)
         bound_ms, bound_by = bound(flops, PEAK_BF16, nbytes)
+        plan = C.tile_plan(ws[3], ws[4])
         rows.append(
             {
                 "shape": name, "x": list(x.shape), "w": list(ws), "dtype": "bf16",
+                "tile": [plan.bm, plan.bn], "stages": plan.stages,
+                "copy_bytes": C._copy_bytes(x),
                 "max_abs_err": err, "rtol": CONV_RTOL, "atol": CONV_ATOL,
-                "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "tflops": flops / ms / 1e9,
+                "tflops": flops / ms / 1e9, "gbytes_per_s": nbytes / ms / 1e6,
             }
         )
         emit({"phase": "kernel_check", "kernel": "conv3d", **rows[-1]})
+        del x, w, b, packed, got, ref, diff, xp, wp
+    rows.append(check_conv_fp32(gen))
     return rows
+
+
+def check_conv_fp32(gen) -> dict:
+    """The fp32 route (exact FMAs, another kernel body) at one shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from bootstrapper_torch.ops import conv3d as C
+
+    name, xs, ws = "fp32_300to300_k3", (1, 8, 30, 30, 300), (3, 3, 3, 300, 300)
+    x, w, b = conv_inputs(gen, xs, None, ws, True, torch.float32)
+    packed = C.pack_weights(w, x.dtype)
+    got = C.conv3d_cuda(x, w, b, packed=packed)
+    ref = C.conv3d_plain(x, w, b)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not err <= CONV_ATOL_FP32:
+        raise AssertionError(f"fp32 conv kernel {name}: max |err| {err} > {CONV_ATOL_FP32}")
+    xp = x.contiguous().permute(0, 4, 1, 2, 3)
+    wp = w.permute(4, 3, 0, 1, 2).contiguous()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the library in full fp32 too
+    library_ms = device_time_ms(lambda: F.conv3d(xp, wp, b))
+    torch.backends.cudnn.allow_tf32 = tf32
+    ms = device_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed))
+    plain_ms = device_time_ms(lambda: C.conv3d_plain(x, w, b), iters=2)
+    flops, nbytes = conv_work(x, w, b, got)
+    bound_ms, bound_by = bound(flops, PEAK_FP32, nbytes)
+    row = {
+        "shape": name, "x": list(xs), "w": list(ws), "dtype": "fp32",
+        "max_abs_err": err, "atol": CONV_ATOL_FP32,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / ms / 1e9,
+    }
+    emit({"phase": "kernel_check", "kernel": "conv3d", **row})
+    return row
 
 
 def check_seeds(seed: int) -> list:
@@ -177,6 +276,9 @@ def check_seeds(seed: int) -> list:
         ("stack_8x640x640_size10", (8, 640, 640), 10),
         ("stack_8x640x640_size7", (8, 640, 640), 7),
         ("section_640x640_size10", (1, 640, 640), 10),
+        # a CREMI-sized stack: large enough that the time is the kernel's
+        # and not a launch's
+        ("stack_125x1250x1250_size10", (125, 1250, 1250), 10),
     ]:
         dist = torch.rand(shape, generator=gen, device="cuda")
         dist[:, ::9, ::7] = 0.5  # plateaus: ties must compare equal
@@ -191,8 +293,10 @@ def check_seeds(seed: int) -> list:
         mismatches = int((got != ref).sum())
         if mismatches:
             raise AssertionError(f"seed kernel {name}: {mismatches} voxels differ")
-        ms = cuda_time_ms(run)
-        plain_ms = cuda_time_ms(lambda: S.seed_maxima_plain(dist, mask, size), iters=3)
+        del got, ref
+        ms = device_time_ms(run)
+        call_ms = cuda_time_ms(run)  # the Python call, enqueue included
+        plain_ms = device_time_ms(lambda: S.seed_maxima_plain(dist, mask, size), iters=2)
         n = dist.numel()
         # fp32 in, bool mask in, uint8 out; 2*(size-1) maxes + 1 compare
         bound_ms, bound_by = bound(n * (2.0 * (size - 1) + 1), PEAK_FP32, n * 6.0)
@@ -200,8 +304,9 @@ def check_seeds(seed: int) -> list:
             {
                 "shape": name, "dist": list(shape), "size": size,
                 "max_abs_err": 0.0, "mismatches": mismatches,
-                "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "gbytes_per_s": n * 6.0 / ms / 1e6,
             }
         )
         emit({"phase": "kernel_check", "kernel": "seed_maxima", **rows[-1]})
@@ -275,7 +380,9 @@ def run_main_path(work: str, net_config: dict, params, raw_shape, seed: int, dev
     """``run_prediction`` then ``run_segmentation`` with the launch counts
     zeroed just before each and read just after."""
     from bootstrapper_torch.core.arrays import open_ds
-    from bootstrapper_torch.ops import launch_counts, reset_launch_counts
+    from bootstrapper_torch.ops import (
+        conv3d_kernel_launches, launch_counts, reset_launch_counts,
+    )
     from bootstrapper_torch.workflows import run_prediction, run_segmentation
 
     paths = write_inputs(work, net_config, params, raw_shape, seed)
@@ -283,6 +390,7 @@ def run_main_path(work: str, net_config: dict, params, raw_shape, seed: int, dev
     reset_launch_counts()
     stats = run_prediction(paths["predict_toml"], device=device)
     predict_counts = launch_counts()
+    conv_launches = conv3d_kernel_launches()
     (pstats,) = stats.values()
 
     reset_launch_counts()
@@ -313,6 +421,7 @@ def run_main_path(work: str, net_config: dict, params, raw_shape, seed: int, dev
         "affs_mean": float(a.mean()),
         "segments_per_threshold": labels,
         "predict_launches": predict_counts,
+        "conv_launches": conv_launches,
         "segment_launches": segment_counts,
         "affs": a,
     }
@@ -407,6 +516,7 @@ def tile_breakdown(net_config: dict, params, seed: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from bootstrapper_torch.models import Model, load_params
+    from bootstrapper_torch.ops import launch_counts
     from bootstrapper_torch.predict.scan import Predictor
 
     model = load_params(Model(net_config), params)
@@ -424,11 +534,15 @@ def tile_breakdown(net_config: dict, params, seed: int) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    packs_before = launch_counts()["conv3d.pack"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()  # after the profiler's start-up
         pred.forward(x)
         torch.cuda.synchronize()
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    repacked = launch_counts()["conv3d.pack"] - packs_before
+    if repacked:
+        raise AssertionError(f"a warm forward packed weights {repacked} times")
     by_name = {}
     for ev in prof.events():  # device-side events only: kernels, copies
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -459,6 +573,7 @@ def tile_breakdown(net_config: dict, params, seed: int) -> dict:
         "groups_ms": groups if device_ms else None,
         "top_kernels_ms": [[n[:120], ms] for n, ms in top],
         "peak_memory_gb": peak_gb,
+        "weight_packs_in_profiled_forward": repacked,
     }
 
 
@@ -476,6 +591,7 @@ def main(argv=None) -> int:
     from bootstrapper_torch.models import init_params_numpy
     from bootstrapper_torch.models.zoo import get_net_config
     from bootstrapper_torch.ops import _build, launch_counts
+    from bootstrapper_torch.ops import conv3d as conv3d_ops
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -489,12 +605,21 @@ def main(argv=None) -> int:
     _build.build_all()
     kernels_s = time.perf_counter() - t0
     native.get_lib()  # the host watershed/agglomeration library (g++)
+    instantiations = conv3d_ops.kernel_info()
     emit(
         {
             "phase": "build", "kernels_seconds": kernels_s,
             "seconds": time.perf_counter() - t0, "sources": list(_build.SOURCES),
+            "conv3d_instantiations": instantiations,
+            "compiler_warnings": [
+                line for log in _build.LOGS.values() for line in log.splitlines()
+                if "warning" in line.lower()
+            ][:20],
         }
     )
+    spilled = [k for k in instantiations if k["dtype"] == "bf16" and k["local_bytes"]]
+    if spilled:
+        raise AssertionError(f"wgmma kernel spills registers: {spilled}")
 
     conv_rows = check_conv(args.seed)
     seed_rows = check_seeds(args.seed)
@@ -506,20 +631,37 @@ def main(argv=None) -> int:
             work, net_config, params, (8, 640, 640), args.seed, "cuda"
         )
     affs = main_path.pop("affs")
-    emit({"phase": "main_path", **main_path})
+    by_conv = main_path.pop("conv_launches")  # counted where the kernel launches
+    for row in conv_rows:
+        row["launches"] = by_conv.pop((tuple(row["x"]), tuple(row["w"])), 0)
+    emit(
+        {
+            "phase": "main_path", **main_path,
+            "conv_launches": {r["shape"]: r["launches"] for r in conv_rows},
+        }
+    )
     conv_launches = main_path["predict_launches"]["conv3d.kernel"]
     seed_launches = main_path["segment_launches"]["seed_maxima.kernel"]
-    if main_path["tiles"] != 8 or conv_launches == 0 or seed_launches == 0:
+    # every tile launches the kernel once at each bf16 shape of conv_cases,
+    # at no other shape, and never on the fp32 route
+    tiles = main_path["tiles"]
+    off_plan = by_conv or [
+        r["shape"] for r in conv_rows
+        if r["launches"] != (tiles if r["dtype"] == "bf16" else 0)
+    ]
+    want_conv = tiles * len(conv_cases())
+    if tiles != 8 or conv_launches != want_conv or off_plan or seed_launches == 0:
         raise AssertionError(
-            f"main path: {main_path['tiles']} tiles, conv kernel launches "
-            f"{conv_launches}, seed kernel launches {seed_launches}"
+            f"main path: {tiles} tiles, conv kernel launches {conv_launches} "
+            f"(not one per tile at {off_plan}), seed kernel launches {seed_launches}"
         )
 
     emit({"phase": "reference", **check_reference(net_config, params, affs, args.seed)})
     emit({"phase": "tile_breakdown", **tile_breakdown(net_config, params, args.seed)})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "counts_now": launch_counts()})
 
-    top_conv, top_seed = conv_rows[0], seed_rows[0]
+    top_conv = max(conv_rows, key=lambda r: r["ms"] * r["launches"])
+    top_seed = seed_rows[0]
     kernels = [
         {
             "name": "conv3d",

@@ -24,39 +24,92 @@ def cuda():
     return torch.device("cuda")
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+
 CUDA_CASES = [
-    # (x shape, w shape, dtype, crop): each cp.async width and the scalar
-    # path (AV 16/8/4/2), a strided crop, batch 2, Cout not a multiple of 8
-    ((1, 5, 9, 10, 128), (3, 3, 3, 128, 64), torch.float32, None),
-    ((1, 4, 9, 8, 130), (3, 3, 3, 130, 48), torch.float32, None),
-    ((1, 5, 9, 10, 128), (3, 3, 3, 128, 64), torch.bfloat16, None),
-    ((1, 6, 11, 9, 300), (3, 3, 3, 300, 60), torch.bfloat16, None),
-    ((1, 4, 9, 8, 129), (3, 3, 3, 129, 70), torch.bfloat16, None),
-    ((2, 5, 7, 9, 1500), (1, 1, 1, 1500, 300), torch.bfloat16, None),
-    ((1, 8, 12, 12, 300), (3, 3, 3, 300, 300), torch.bfloat16, (6, 9, 9)),
+    # (x shape, w shape, dtype, crop)
+    # fp32, the FMA kernel: 16- and 8-byte copies
+    ((1, 5, 9, 10, 128), (3, 3, 3, 128, 64), F32, None),
+    ((1, 4, 9, 8, 130), (3, 3, 3, 130, 48), F32, None),
+    ((1, 8, 12, 12, 300), (1, 1, 1, 300, 60), F32, (4, 8, 8)),
+    # bf16, the wgmma kernel: the eleven convs of one U-Net tile with
+    # their channel counts, kernels and crops, at few voxels
+    ((1, 6, 12, 12, 300), (3, 3, 3, 300, 300), BF16, None),  # enc2.c1
+    ((1, 4, 7, 7, 300), (3, 3, 3, 300, 1500), BF16, None),  # enc3.c0
+    ((1, 4, 6, 6, 1500), (3, 3, 3, 1500, 1500), BF16, None),  # enc3.c1
+    ((1, 6, 10, 10, 300), (1, 1, 1, 300, 1500), BF16, (4, 8, 8)),  # enc3.res
+    ((1, 8, 12, 12, 300), (3, 3, 3, 300, 300), BF16, (6, 10, 10)),  # dec2.c0 skip
+    ((1, 5, 9, 9, 1500), (3, 3, 3, 1500, 300), BF16, None),  # dec2.c0 up
+    ((1, 5, 20, 20, 300), (3, 3, 3, 300, 300), BF16, None),  # dec2.c1, 4 M tiles
+    ((1, 8, 12, 12, 300), (1, 1, 1, 300, 300), BF16, (4, 8, 8)),  # dec2.res skip
+    ((2, 5, 7, 9, 1500), (1, 1, 1, 1500, 300), BF16, (3, 5, 7)),  # dec2.res up, batch 2
+    ((1, 6, 11, 9, 300), (3, 3, 3, 300, 60), BF16, None),  # dec1.c0 up
+    ((1, 8, 12, 12, 300), (1, 1, 1, 300, 60), BF16, (4, 8, 8)),  # dec1.res up
+    # copy widths: 16 bytes; scalar loads (odd Ci), Co padded to 8
+    ((1, 5, 9, 10, 128), (3, 3, 3, 128, 64), BF16, None),
+    ((1, 4, 9, 8, 129), (3, 3, 3, 129, 70), BF16, None),
+    # Ci 130: a last chunk of 2 channels in one k16 step; Co 9; a crop
+    # whose first voxel is only 4-byte aligned; batch 2
+    ((2, 6, 9, 9, 130), (3, 3, 3, 130, 9), BF16, (4, 7, 7)),
+    # a window wider than a tensor map's 16: 16-byte cp.async on voxel lines
+    ((1, 2, 5, 40, 128), (1, 2, 17, 128, 16), BF16, None),
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("relu", [False, True])
-@pytest.mark.parametrize("x_shape,w_shape,dtype,crop", CUDA_CASES)
-def test_conv3d_kernel_matches_plain(cuda, x_shape, w_shape, dtype, crop, relu):
-    """fp32: FMAs in another order (atol 1e-4 at outputs of O(5)); bf16:
-    one rounding of fp32 sums taken in another order (rtol = atol = 2^-6,
-    about two bf16 ulps)."""
+def _conv_inputs(cuda, x_shape, w_shape, dtype, crop, layout="dense"):
+    """``layout`` "dense": voxels of C * itemsize bytes, whatever their
+    alignment (cp.async copies of 16, 8 or 4 bytes, or scalar loads);
+    "lines": as the U-Net's ops lay their outputs out, every voxel on a
+    16-byte line (bf16: the TMA im2col load)."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     x = torch.randn(x_shape, generator=gen).to(cuda, dtype)
+    if layout == "lines":
+        lines = C.empty_channels_last(x_shape, dtype, cuda)
+        lines.copy_(x)
+        x = lines
     if crop is not None:
         x = center_crop(x, crop)
     fan_in = w_shape[0] * w_shape[1] * w_shape[2] * w_shape[3]
     w = (torch.randn(w_shape, generator=gen) / fan_in**0.5).to(cuda, dtype)
     b = torch.randn(w_shape[-1], generator=gen).to(cuda, dtype)
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "lines"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("x_shape,w_shape,dtype,crop", CUDA_CASES)
+def test_conv3d_kernel_matches_plain(cuda, x_shape, w_shape, dtype, crop, relu, layout):
+    """fp32: FMAs in another order (atol 1e-4 at outputs of O(5)); bf16:
+    one rounding of fp32 sums taken in another order (rtol = atol = 2^-6,
+    about two bf16 ulps)."""
+    x, w, b = _conv_inputs(cuda, x_shape, w_shape, dtype, crop, layout)
     before = C.COUNTS["kernel"]
     got = C.conv3d(x, w, b, relu=relu)
     torch.cuda.synchronize()
     assert C.COUNTS["kernel"] == before + 1
     ref = C.conv3d_plain(x, w, b, relu=relu)
     tol = 1e-4 if dtype == torch.float32 else 2.0**-6
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), ref.float().cpu().numpy(), rtol=tol, atol=tol
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_conv3d_kernel_chains_on_16_byte_voxels(cuda, dtype):
+    """A kernel output (300 channels: 600-byte voxels in bf16) is laid
+    out on 16-byte lines, so the next conv gathers it with 16-byte
+    copies; crops of it stay aligned."""
+    x, w, b = _conv_inputs(cuda, (1, 7, 12, 12, 300), (3, 3, 3, 300, 300), dtype, None)
+    y = C.conv3d(x, w, b, relu=True)
+    assert C._copy_bytes(x) == (8 if dtype == BF16 else 16)
+    assert C._copy_bytes(y) == 16 and C._copy_bytes(center_crop(y, (3, 7, 7))) == 16
+    w2 = w[:1, :1, :1]
+    got = C.conv3d(center_crop(y, (3, 7, 7)), w2, None)
+    ref = C.conv3d_plain(center_crop(y, (3, 7, 7)), w2, None)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == F32 else 2.0**-6
     np.testing.assert_allclose(
         got.float().cpu().numpy(), ref.float().cpu().numpy(), rtol=tol, atol=tol
     )
