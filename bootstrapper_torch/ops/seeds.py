@@ -9,7 +9,10 @@ included).
 
 On a CUDA tensor the wrappers launch ``csrc/seed_maxima.cu`` (one launch
 per call, counted in ``COUNTS``); on a CPU tensor they run the plain
-PyTorch version.
+PyTorch version.  The kernel picks its copy width from the row length and
+the distances' address and its body from ``size`` (windows up to 16 keep
+the y pass in registers, larger ones take the general body);
+``LAST_PLAN`` says what the last launch took.
 """
 
 from __future__ import annotations
@@ -23,6 +26,11 @@ from . import _build
 
 #: CUDA launches of the seed kernel
 COUNTS = {"kernel": 0}
+
+#: what the last launch took: bytes per copy of fp32 distances (16, 8 or 4,
+#: by the row length and the base address), the body ("registers" or
+#: "general") and the output rows a warp walks
+LAST_PLAN: dict = {}
 
 
 def window_lr(size: int):
@@ -80,14 +88,21 @@ def _seed_maxima_cuda(dist, mask, size):
     if out.numel() == 0:
         return out
     lib = _lib(dist.device)
+    plan = (ctypes.c_int * 3)()
     with torch.cuda.device(dist.device):
         stream = torch.cuda.current_stream(dist.device).cuda_stream
         err = lib.bs_seed_maxima(
-            dist.data_ptr(), m8.data_ptr(), out.data_ptr(), z, h, w, size, stream
+            dist.data_ptr(), m8.data_ptr(), out.data_ptr(), z, h, w, size, stream, plan
         )
     if err != 0:
-        raise RuntimeError(f"seed kernel launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"seed kernel launch failed: cudaError {err} (size {size}, stack {(z, h, w)})"
+        )
     COUNTS["kernel"] += 1
+    LAST_PLAN.update(
+        copy_bytes=4 * plan[0], body="general" if plan[1] else "registers",
+        rows_per_warp=plan[2],
+    )
     return out
 
 
@@ -95,14 +110,13 @@ _INITIALISED: set = set()
 
 
 def _lib(device):
-    """The built library; on first use per device the kernel is given the
-    device's opt-in shared memory (once, not per launch)."""
+    """The built library; on first use per device the general body is given
+    the device's opt-in shared memory (once, not per launch)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = _build.load(
         "seed_maxima",
         {
-            "bs_seed_maxima": ([p, p, p, i, i, i, i, p], i),
-            "bs_seed_maxima_smem_bytes": ([i], ctypes.c_longlong),
+            "bs_seed_maxima": ([p, p, p, i, i, i, i, p, ctypes.POINTER(i)], i),
             "bs_seed_maxima_init": ([], i),
         },
     )

@@ -1,7 +1,8 @@
 """Watershed fragments from affinities (the JAX package's
 ``post/fragments.py:watershed_from_affinities``, ws mode).
 
-Boundary mask = mean affinity > 0.5, its Euclidean distance transform,
+Boundary mask = mean affinity > half of ``max_affinity_value``, its
+Euclidean distance transform,
 seeds at the maxima of the max-filtered distance, then the native seeded
 priority-flood watershed.  With ``fragments_in_xy`` (the default of the
 ws pipeline) every z-section is its own 2D problem and the seeds of the
@@ -31,16 +32,19 @@ def watershed_from_affinities(
     affs: np.ndarray,
     fragments_in_xy: bool = False,
     min_seed_distance: int = 10,
+    max_affinity_value: float = 1.0,
+    return_seeds: bool = False,
     device=None,
 ):
-    """Seeded watershed fragments.  ``affs``: (C, Z, Y, X) float in [0, 1].
-    ``fragments_in_xy``: per-section 2D fragments from the mean of the two
-    xy channels, with per-section id offsets.  Returns
-    ``(fragments, n_fragments)``."""
+    """Seeded watershed fragments.  ``affs``: (C, Z, Y, X) float in
+    [0, ``max_affinity_value``].  ``fragments_in_xy``: per-section 2D
+    fragments from the mean of the two xy channels, with per-section id
+    offsets.  Returns ``(fragments, n_fragments)``, and the labelled seeds
+    as a third item with ``return_seeds``."""
     affs = np.asarray(affs, np.float32)
 
     def single(mean_affs, id_offset=0, maxima=None, dist=None):
-        boundary_mask = mean_affs > 0.5
+        boundary_mask = mean_affs > 0.5 * max_affinity_value
         if dist is None:
             dist = ndimage.distance_transform_edt(boundary_mask).astype(np.float32)
         if maxima is None:
@@ -49,16 +53,16 @@ def watershed_from_affinities(
         seeds, n = ndimage.label(maxima)
         seeds = seeds.astype(np.uint64)
         if n == 0:
-            return np.zeros(mean_affs.shape, np.uint64), id_offset
+            return np.zeros(mean_affs.shape, np.uint64), id_offset, seeds
         seeds[seeds != 0] += id_offset
         frags = native.watershed_seeded(
             dist.max() - dist, seeds, boundary_mask.astype(np.uint8)
         )
-        return frags, id_offset + n
+        return frags, id_offset + n, seeds
 
     if fragments_in_xy:
         mean_affs = 0.5 * (affs[-1] + affs[-2])
-        boundary_stack = mean_affs > 0.5
+        boundary_stack = mean_affs > 0.5 * max_affinity_value
         dist_stack = np.stack(
             [
                 ndimage.distance_transform_edt(boundary_stack[z]).astype(np.float32)
@@ -69,10 +73,14 @@ def watershed_from_affinities(
             dist_stack, boundary_stack, min_seed_distance, device
         )
         fragments = np.zeros(mean_affs.shape, np.uint64)
+        seeds = np.zeros(mean_affs.shape, np.uint64)
         id_offset = 0
         for z in range(mean_affs.shape[0]):
-            fragments[z], id_offset = single(
+            fragments[z], id_offset, seeds[z] = single(
                 mean_affs[z], id_offset, maxima=maxima_stack[z], dist=dist_stack[z]
             )
-        return fragments, id_offset
-    return single(affs.mean(axis=0))
+    else:
+        fragments, id_offset, seeds = single(affs.mean(axis=0))
+    if return_seeds:
+        return fragments, id_offset, seeds
+    return fragments, id_offset

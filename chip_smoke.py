@@ -13,17 +13,20 @@ Phases, each printing one JSON line:
     shapes the main path gives it: the conv kernel (K1) at all eleven
     U-Net shapes of one tile in bf16 (the wgmma kernel) and at one shape
     in fp32 (the FMA kernel), the seed kernel (K2, and K3 as its Z=1
-    case) bit-exact, also on a CREMI-sized stack.  Each with its device
-    time (profiler device events, not the Python call), the plain
-    version's, the library call's where one exists, and the least time
-    the card could take;
+    case) bit-exact, also on a CREMI-sized stack and with a window of 33
+    (the kernel's general body), with the copy width and body each launch
+    took.  Each with its device time (profiler device events, not the
+    Python call), the plain version's, the library call's where one
+    exists, and the least time the card could take;
 (c) the main path through the user entry points: a synthetic uint8 raw
     volume (made from --seed) as an uncompressed Zarr, the full-width
     3d_affs setup with numpy-seeded weights saved as a checkpoint,
     ``run_prediction`` over 2x2x2 output tiles (8, 640, 640) in bf16, then
     ``run_segmentation`` in ws mode.  Launch counts are zeroed just before
     each entry point and read just after; both kernels must have run,
-    the conv kernel once per tile at each of its eleven shapes;
+    the conv kernel once per tile at each of its eleven shapes.  Then what
+    the segmentation pays around the seed kernel: ``device_seed_maxima``
+    (upload, kernel, download) timed at two stack sizes;
 (d) reference checks on a small input: the forward on the card (fp32 and
     bf16) against the CPU fp32 forward, and the segmentation with seeds
     on the card against the CPU path; then one full-size tile forward
@@ -105,24 +108,25 @@ def device_time_ms(fn, iters: int = 10) -> float:
     """Mean time the device spends in the kernels and copies of ``fn``, from
     ``torch.profiler`` device events over ``iters`` calls after one
     warm-up call; the host's time to enqueue them is not in it.  Raises
-    where the profiler saw no device event."""
+    where the profiler saw no device event in three tries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(
-        ev.time_range.elapsed_us()
-        for ev in prof.events()
-        if ev.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if not us:
-        raise RuntimeError("torch.profiler recorded no device event")
-    return us / 1e3 / iters
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(
+            ev.time_range.elapsed_us()
+            for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+        )
+        if us:
+            return us / 1e3 / iters
+    raise RuntimeError("torch.profiler recorded no device event in three traces")
 
 
 def bound(flops: float, peak_flops: float, nbytes: float):
@@ -279,8 +283,12 @@ def check_seeds(seed: int) -> list:
         # a CREMI-sized stack: large enough that the time is the kernel's
         # and not a launch's
         ("stack_125x1250x1250_size10", (125, 1250, 1250), 10),
+        # a window past the register body's 16: the general body
+        ("stack_8x640x640_size33", (8, 640, 640), 33),
     ]:
-        dist = torch.rand(shape, generator=gen, device="cuda")
+        # normal, so the border holds negative values (outside counts as
+        # -inf, not 0)
+        dist = torch.randn(shape, generator=gen, device="cuda")
         dist[:, ::9, ::7] = 0.5  # plateaus: ties must compare equal
         mask = torch.rand(shape, generator=gen, device="cuda") > 0.3
         if shape[0] == 1:  # K3: the single-section entry point
@@ -288,6 +296,7 @@ def check_seeds(seed: int) -> list:
         else:
             run = lambda: S.seed_maxima_3d(dist, mask, size)  # noqa: E731
         got = run()
+        plan = dict(S.LAST_PLAN)
         ref = S.seed_maxima_plain(dist, mask, size)
         torch.cuda.synchronize()
         mismatches = int((got != ref).sum())
@@ -302,7 +311,7 @@ def check_seeds(seed: int) -> list:
         bound_ms, bound_by = bound(n * (2.0 * (size - 1) + 1), PEAK_FP32, n * 6.0)
         rows.append(
             {
-                "shape": name, "dist": list(shape), "size": size,
+                "shape": name, "dist": list(shape), "size": size, **plan,
                 "max_abs_err": 0.0, "mismatches": mismatches,
                 "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -311,6 +320,52 @@ def check_seeds(seed: int) -> list:
         )
         emit({"phase": "kernel_check", "kernel": "seed_maxima", **rows[-1]})
     return rows
+
+
+def time_seed_call(seed: int, shape, size: int = 10) -> dict:
+    """What ``post/fragments.py:device_seed_maxima`` costs on a host stack
+    of ``shape``: the wall time of the call, and its three parts (upload
+    of pageable fp32 distances and a bool mask, the kernel launch, download
+    of the uint8 seeds) from CUDA events between the same statements run
+    once more; the rest is the host's (the bool conversion)."""
+    import torch
+
+    from bootstrapper_torch.ops.seeds import seed_maxima_3d
+    from bootstrapper_torch.post.fragments import device_seed_maxima
+
+    rng = np.random.default_rng(seed)
+    dist = rng.standard_normal(shape, dtype=np.float32)
+    mask = rng.random(shape, dtype=np.float32) > 0.3
+    ref = device_seed_maxima(dist, mask, size, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_seed_maxima(dist, mask, size, "cuda")
+    call_ms = (time.perf_counter() - t0) * 1e3
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    d = torch.from_numpy(dist).to("cuda")
+    m = torch.from_numpy(mask).to("cuda")
+    marks[1].record()
+    seeds = seed_maxima_3d(d, m, size)
+    marks[2].record()
+    host = seeds.cpu()
+    marks[3].record()
+    got = host.numpy().astype(bool)
+    parts_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if not np.array_equal(got, ref):
+        raise AssertionError(f"seed call at {shape}: two runs differ")
+    upload, kernel, download = (marks[i].elapsed_time(marks[i + 1]) for i in range(3))
+    nbytes = dist.nbytes + mask.nbytes + host.numel()
+    return {
+        "stack": list(shape), "size": size, "call_wall_ms": call_ms,
+        # the same statements once more, with events between them
+        "parts_wall_ms": parts_ms, "upload_ms": upload, "kernel_ms": kernel,
+        "download_ms": download, "host_rest_ms": parts_ms - upload - kernel - download,
+        "pcie_bytes": nbytes, "pcie_gbytes_per_s": nbytes / (upload + download) / 1e6,
+    }
 
 
 # -- (c) the main path -----------------------------------------------------
@@ -655,6 +710,9 @@ def main(argv=None) -> int:
             f"main path: {tiles} tiles, conv kernel launches {conv_launches} "
             f"(not one per tile at {off_plan}), seed kernel launches {seed_launches}"
         )
+
+    for shape in [(8, 640, 640), (125, 1250, 1250)]:
+        emit({"phase": "seed_call", **time_seed_call(args.seed, shape)})
 
     emit({"phase": "reference", **check_reference(net_config, params, affs, args.seed)})
     emit({"phase": "tile_breakdown", **tile_breakdown(net_config, params, args.seed)})

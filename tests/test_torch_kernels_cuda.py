@@ -8,7 +8,7 @@ This file imports no JAX, so it also runs on the GPU host:
 import numpy as np
 import pytest
 import torch
-from scipy import ndimage
+from _torch_seed_cases import EDGE_CASES, scipy_seeds, seed_stack
 
 from bootstrapper_torch.models.unet import center_crop
 from bootstrapper_torch.ops import conv3d as C
@@ -115,32 +115,66 @@ def test_conv3d_kernel_chains_on_16_byte_voxels(cuda, dtype):
     )
 
 
-def _stack(seed, shape):
-    rng = np.random.default_rng(seed)
-    dist = rng.uniform(size=shape).astype(np.float32)
-    dist[:, ::7, ::5] = 0.5  # plateaus: ties must compare equal
-    mask = (rng.uniform(size=shape) > 0.3).astype(np.float32)
-    return dist, mask
-
-
-def _scipy(dist, mask, size):
-    return np.stack(
-        [
-            ((d >= ndimage.maximum_filter(d, size=size)) & (m > 0)).astype(np.uint8)
-            for d, m in zip(dist, mask)
-        ]
-    )
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [3, 4, 7, 10, 11, 33])
-@pytest.mark.parametrize("shape", [(3, 33, 70), (8, 640, 640)])
-def test_seed_kernel_matches_plain(cuda, shape, size):
-    dist, mask = _stack(size, shape)
-    d = torch.from_numpy(dist).to(cuda)
+@pytest.mark.parametrize(
+    "shape,size,kind",
+    [
+        pytest.param(shape, size, "uniform", id=f"{'x'.join(map(str, shape))}-s{size}")
+        for shape in [(3, 33, 70), (8, 640, 640)]
+        for size in [3, 4, 7, 10, 11, 33]
+    ]
+    + EDGE_CASES
+    + [
+        # enough warps for row blocks of 128, 64 and 32 rows, with 8-byte
+        # and 16-byte rows; the general body on a stack of many row blocks
+        pytest.param((40, 700, 1250), 10, "normal", id="40x700x1250-s10-normal"),
+        pytest.param((12, 700, 1250), 16, "normal", id="12x700x1250-s16-normal"),
+        pytest.param((16, 500, 640), 9, "negative", id="16x500x640-s9-negative"),
+        pytest.param((8, 640, 640), 17, "neginf", id="8x640x640-s17-neginf"),
+        # a window so large that one warp's rows fill a CTA's shared memory
+        pytest.param((2, 200, 300), 150, "normal", id="2x200x300-s150-normal"),
+    ],
+)
+def test_seed_kernel_matches_plain(cuda, shape, size, kind):
+    """Bit-exact against the plain version and scipy: max and >= do not
+    round."""
+    dist, mask = seed_stack(size, shape, kind)
+    d = torch.from_numpy(dist).to(cuda)  # a crop stays a strided view
     m = torch.from_numpy(mask > 0).to(cuda)
     before = S.COUNTS["kernel"]
     got = S.seed_maxima_3d(d, m, size)
+    torch.cuda.synchronize()
     assert S.COUNTS["kernel"] == before + 1
+    assert S.LAST_PLAN["body"] == ("registers" if size <= 16 else "general")
     assert torch.equal(got, S.seed_maxima_plain(d, m, size))
-    np.testing.assert_array_equal(got.cpu().numpy(), _scipy(dist, mask, size))
+    np.testing.assert_array_equal(got.cpu().numpy(), scipy_seeds(dist, mask, size))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,copy_bytes", [(0, 16), (2, 8), (1, 4)])
+def test_seed_kernel_copy_width_follows_alignment(cuda, offset, copy_bytes):
+    """A stack that starts 0, 8 or 4 bytes past a 16-byte boundary (a
+    contiguous slice of a larger buffer) takes 16-, 8- or 4-byte copies;
+    the seeds are the same."""
+    shape, size = (3, 24, 136), 10
+    dist, mask = seed_stack(offset, shape, "normal")
+    n = dist.size
+    buf = torch.empty(n + 4, device=cuda)
+    d = buf[offset : offset + n].view(shape).copy_(torch.from_numpy(dist))
+    mbuf = torch.empty(n + 4, dtype=torch.bool, device=cuda)
+    m = mbuf[offset : offset + n].view(shape).copy_(torch.from_numpy(mask > 0))
+    got = S.seed_maxima_3d(d, m, size)
+    torch.cuda.synchronize()
+    assert S.LAST_PLAN["copy_bytes"] == copy_bytes
+    np.testing.assert_array_equal(got.cpu().numpy(), scipy_seeds(dist, mask, size))
+
+
+@pytest.mark.cuda
+def test_seed_kernel_raises_for_a_window_beyond_shared_memory(cuda):
+    """The general body keeps `size` rows of maxima per warp in shared
+    memory; a window that cannot fit is refused before any launch."""
+    d = torch.zeros((1, 64, 64), device=cuda)
+    before = S.COUNTS["kernel"]
+    with pytest.raises(RuntimeError, match="seed kernel launch failed"):
+        S.seed_maxima_3d(d, d > -1, 1000)
+    assert S.COUNTS["kernel"] == before

@@ -9,7 +9,7 @@ the plain version on the card.
 import numpy as np
 import pytest
 import torch
-from scipy import ndimage
+from _torch_seed_cases import EDGE_CASES, scipy_seeds, seed_stack
 
 from bootstrapper_torch.ops import seeds as S
 from bootstrapper_tpu.ops.pallas_kernels import seed_maxima as jax_seed_maxima
@@ -19,40 +19,36 @@ SIZES = [3, 4, 7, 10]
 
 
 def _stack(seed, shape=(4, 40, 72)):
-    rng = np.random.default_rng(seed)
-    dist = rng.uniform(size=shape).astype(np.float32)
-    dist[:, ::7, ::5] = 0.5  # plateaus: ties must compare equal
-    mask = (rng.uniform(size=shape) > 0.3).astype(np.float32)
-    return dist, mask
+    return seed_stack(seed, shape, "uniform")
 
 
-def _scipy(dist, mask, size):
-    return np.stack(
-        [
-            ((d >= ndimage.maximum_filter(d, size=size)) & (m > 0)).astype(np.uint8)
-            for d, m in zip(dist, mask)
-        ]
-    )
-
-
-@pytest.mark.parametrize("size", SIZES)
-def test_plain_matches_pallas_and_scipy_3d(size):
-    dist, mask = _stack(size)
+@pytest.mark.parametrize(
+    "shape,size,kind",
+    [pytest.param((4, 40, 72), size, "uniform", id=str(size)) for size in SIZES] + EDGE_CASES,
+)
+def test_plain_matches_pallas_and_scipy_3d(shape, size, kind):
+    dist, mask = seed_stack(size, shape, kind)
     got = S.seed_maxima_3d(torch.from_numpy(dist), torch.from_numpy(mask), size)
-    assert got.dtype == torch.uint8
+    assert got.dtype == torch.uint8 and tuple(got.shape) == shape
     got = got.numpy()
     pallas = np.asarray(jax_seed_maxima_3d(dist, mask, size=size, interpret=True))
     np.testing.assert_array_equal(got, pallas)
-    np.testing.assert_array_equal(got, _scipy(dist, mask, size))
+    np.testing.assert_array_equal(got, scipy_seeds(dist, mask, size))
 
 
-@pytest.mark.parametrize("size", SIZES)
-def test_single_section_matches_pallas(size):
+@pytest.mark.parametrize(
+    "shape,size,kind",
+    [pytest.param((1, 33, 70), size, "uniform", id=str(size)) for size in SIZES]
+    + [c for c in EDGE_CASES if c.values[0][1:] in ((33, 70), (20, 5), (4, 4))],
+)
+def test_single_section_matches_pallas(shape, size, kind):
     """K3: one section is the Z = 1 case of the same function."""
-    dist, mask = _stack(10 + size, shape=(1, 33, 70))
-    got = S.seed_maxima(torch.from_numpy(dist[0]), torch.from_numpy(mask[0]), size)
-    pallas = np.asarray(jax_seed_maxima(dist[0], mask[0], size=size, interpret=True))
+    dist, mask = seed_stack(10 + size, shape, kind)
+    dist, mask = dist[-1], mask[-1]
+    got = S.seed_maxima(torch.from_numpy(dist), torch.from_numpy(mask), size)
+    pallas = np.asarray(jax_seed_maxima(dist, mask, size=size, interpret=True))
     np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(got.numpy(), scipy_seeds(dist[None], mask[None], size)[0])
 
 
 def test_mask_dtypes_agree():
