@@ -3,8 +3,9 @@ instantiated from a net config dict (the contents of a
 ``net_config.json``), as in the JAX package's ``models/model.py``.
 
 ``Model`` is an ``nn.Module``: ``model(x) -> {name: (N, D, H, W, C)
-fp32}`` for channels-last input ``x``.  Weights come from JAX-layout
-params through ``models/weights.py``.  3D setups only so far.
+fp32}`` for channels-last input ``x``; ``forward_stream`` is one step of
+overlap-save z streaming (``models/zstream.py``).  Weights come from
+JAX-layout params through ``models/weights.py``.  3D setups only so far.
 """
 
 from __future__ import annotations
@@ -89,3 +90,13 @@ class Model(nn.Module):
             ) from None
         z = self.unet(x.to(self.compute_dtype))
         return {name: head(z).float() for name, head in self.heads.items()}
+
+    def forward_stream(self, x, state):
+        """One overlap-save z-streaming step (the JAX package's
+        ``Model.apply_stream``): ``state=None`` is the warm step (``x``
+        carries the full z context), later steps take ``s`` new z slices.
+        Returns ``({output name: fp32 (N, s, H', W', C_head)}, new state)``."""
+        from .zstream import unet_stream_step
+
+        z, new_state = unet_stream_step(self.unet, x.to(self.compute_dtype), state)
+        return {name: head(z[0]).float() for name, head in self.heads.items()}, new_state

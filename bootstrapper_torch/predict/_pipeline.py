@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,28 +34,32 @@ def normalize_raw(raw: np.ndarray) -> np.ndarray:
     raise ValueError(f"unsupported raw dtype {raw.dtype}")
 
 
-def make_tile_reader(inputs: Sequence[Array], context, is_image: bool):
-    """Per-tile host reader: the channels-last concat of all inputs over the
-    context-grown ROI, reflect-padded outside the volume.
+def read_inputs(inputs: Sequence[Array], roi: Roi, is_image: bool, read=None) -> np.ndarray:
+    """The channels-last concat of all inputs over ``roi``.  ``read(arr,
+    roi)`` reads one input (default: reflect-padded outside the volume).
 
-    When every input is stored uint8, tiles ship as raw bytes (4x less
+    When every input is stored uint8, it stays raw bytes (4x less
     host->device traffic than float32) and the predictor normalises on the
     device with the same float32 arithmetic."""
     device_norm = all(a.dtype == np.uint8 for a in inputs)
+    chans = []
+    for arr in inputs:
+        x = arr.to_ndarray(roi, pad_mode="reflect") if read is None else read(arr, roi)
+        if not device_norm:
+            x = normalize_raw(x)
+        x = x[..., None] if x.ndim == 3 else np.moveaxis(x, 0, -1)
+        chans.append(x)
+    x = np.concatenate(chans, axis=-1)
+    if is_image and not device_norm:
+        x = x * 2.0 - 1.0
+    return np.ascontiguousarray(x)
+
+
+def make_tile_reader(inputs: Sequence[Array], context, is_image: bool):
+    """Per-tile host reader: ``read_inputs`` over the context-grown ROI."""
 
     def read_tile(write_roi: Roi) -> np.ndarray:
-        read_roi = write_roi.grow(context, context)
-        chans = []
-        for arr in inputs:
-            x = arr.to_ndarray(read_roi, pad_mode="reflect")
-            if not device_norm:
-                x = normalize_raw(x)
-            x = x[..., None] if x.ndim == 3 else np.moveaxis(x, 0, -1)
-            chans.append(x)
-        x = np.concatenate(chans, axis=-1)
-        if is_image and not device_norm:
-            x = x * 2.0 - 1.0
-        return np.ascontiguousarray(x)
+        return read_inputs(inputs, write_roi.grow(context, context), is_image)
 
     return read_tile
 
@@ -115,25 +119,38 @@ def run_pipelined(
         thread.join()
 
 
+class PinnedBuffers:
+    """Host staging buffers, one per (name, shape, dtype), made at first
+    use and kept: a stream's warm and steady steps differ in z, and each
+    keeps its own buffers instead of pinning new ones at every change."""
+
+    def __init__(self, pin: bool = True):
+        self.pin = pin
+        self._bufs: dict = {}
+
+    def get(self, name, shape, dtype) -> torch.Tensor:
+        key = (name, tuple(shape), dtype)
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=self.pin)
+            self._bufs[key] = buf
+        return buf
+
+
 class DeviceIO:
     """Pinned staging buffers and a side stream for one device.
 
     Two slots alternate; under the one-deep pipeline slot ``i % 2`` is free
     again when item ``i + 2`` is dispatched, because item ``i`` has been
-    drained by then (its event waited for)."""
+    drained by then (its event waited for).  ``fn`` runs on the side
+    stream, so state it carries from one item to the next (a z stream's
+    caches) is made and used on that stream only."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device)
-        self._slots = [{}, {}]
+        self._slots = [PinnedBuffers(), PinnedBuffers()]
         self._next = 0
-
-    def _buffer(self, slot: dict, key, shape, dtype) -> torch.Tensor:
-        buf = slot.get(key)
-        if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
-            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
-            slot[key] = buf
-        return buf
 
     def run(self, host_arr: np.ndarray, fn: Callable):
         """Upload ``host_arr``, run ``fn`` on the side stream, queue the
@@ -142,7 +159,7 @@ class DeviceIO:
         slot = self._slots[self._next]
         self._next ^= 1
         src = torch.from_numpy(host_arr)
-        staged = self._buffer(slot, "in", src.shape, src.dtype)
+        staged = slot.get("in", src.shape, src.dtype)
         staged.copy_(src)
         # order after work queued on the caller's stream (the weights'
         # upload and cast when the model was moved to the device)
@@ -151,7 +168,7 @@ class DeviceIO:
             outs = fn(staged.to(self.device, non_blocking=True))
             host = {}
             for k, v in outs.items():
-                host[k] = self._buffer(slot, k, v.shape, v.dtype)
+                host[k] = slot.get(k, v.shape, v.dtype)
                 host[k].copy_(v, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self.stream)
@@ -162,25 +179,36 @@ class TileWriter:
     """ROI-clipped writes of per-tile model outputs.
 
     ``outputs`` maps head name -> destination Array; ``outputs_cfg`` is the
-    model's ``net_config["outputs"]`` (for the per-head channel count)."""
+    model's ``net_config["outputs"]`` (for the per-head channel count).
+    ``clip_roi`` clips every write further, for tiles that overhang the
+    requested ROI on purpose (a z stream's last step)."""
 
     def __init__(
         self,
         outputs: Dict[str, Array],
         outputs_cfg: Dict[str, dict],
         voxel_size: Coordinate,
+        clip_roi: Optional[Roi] = None,
     ):
         self.outputs = outputs
         self.dims = {k: head_dims(cfg) for k, cfg in outputs_cfg.items()}
         self.voxel_size = voxel_size
+        self.clip_roi = clip_roi
 
-    def drain_batch(self, batch_tiles: Sequence[Roi], outs: Dict) -> None:
+    def drain_batch(
+        self, batch_tiles: Sequence[Roi], outs: Dict, clips: Optional[Sequence[Roi]] = None
+    ) -> None:
         """Write every tile of one batch of host outputs
-        (``outs[name]``: (B, D, H, W, C))."""
+        (``outs[name]``: (B, D, H, W, C)); ``clips[j]``, where given,
+        clips tile j's writes too."""
         for j, wroi in enumerate(batch_tiles):
             for name, arr in self.outputs.items():
                 pred = np.moveaxis(np.asarray(outs[name][j]), -1, 0)
                 dest = wroi.intersect(arr.roi)
+                if self.clip_roi is not None:
+                    dest = dest.intersect(self.clip_roi)
+                if clips is not None:
+                    dest = dest.intersect(clips[j])
                 if dest.empty:
                     continue
                 sl = tuple(

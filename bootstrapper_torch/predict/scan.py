@@ -34,16 +34,16 @@ from ..models.unet import compute_output_shape
 from ._pipeline import DeviceIO, TileWriter, make_tile_reader, run_pipelined
 
 
-def shrink_shape_increase(model: Model, volume_vox_shape) -> list:
-    """The net config's ``shape_increase``, shrunk (possibly below zero) so
-    one output tile fits inside the volume, in pooling-product steps,
-    keeping the shrunk input/output pair valid for the net's conv
-    arithmetic."""
+def shrink_shape_increase(model: Model, volume_vox_shape, inc=None) -> list:
+    """``inc`` (default: the net config's ``shape_increase``), shrunk
+    (possibly below zero) so one output tile fits inside the volume, in
+    pooling-product steps, keeping the shrunk input/output pair valid for
+    the net's conv arithmetic."""
     nc = model.net_config
     dims = model.dims
     base_in = list(nc["input_shape"])
     base_out = list(nc["output_shape"])
-    inc = list(nc.get("shape_increase", [0] * dims))
+    inc = list(nc.get("shape_increase", [0] * dims) if inc is None else inc)
     vol = list(volume_vox_shape)[-dims:]
     step = [1] * dims
     for f in nc["downsample_factors"]:
@@ -173,11 +173,12 @@ def prepare_prediction_outputs(
     model: Model,
     roi: Roi,
     voxel_size,
-    predictor: Predictor,
+    predictor,
     dataset_prefix: str = "",
 ) -> Dict[str, Array]:
     """Create uint8 output Zarrs for each model output over ``roi``, chunked
-    to the predictor's output tile."""
+    to the predictor's ``chunk_tile`` where it has one (a z stream's write
+    grid), else to its output tile, so that no write straddles a chunk."""
     vs = Coordinate(voxel_size)
     out = {}
     vox_shape = tuple(Coordinate(roi.shape) / vs)
@@ -190,6 +191,6 @@ def prepare_prediction_outputs(
             offset=roi.offset,
             voxel_size=vs,
             dtype=np.uint8,
-            chunk_shape=(dims, *predictor.output_tile),
+            chunk_shape=(dims, *getattr(predictor, "chunk_tile", predictor.output_tile)),
         )
     return out

@@ -1,11 +1,15 @@
-"""Prediction workflow: TOML config -> tiled inference (the JAX package's
-``workflows/predict.py``), for unchained image setups.
+"""Prediction workflow: TOML config -> inference (the JAX package's
+``workflows/predict.py``, one device), for unchained image setups.
 
 The config is the JAX package's: ``[predict.<volume>]`` (or top-level
 ``[<volume>]``) tables with ``raw_dataset``, ``output_container``,
 optional ``roi_offset``/``roi_shape``, and a one-link ``chain`` of
-``{setup_dir, output_prefix, checkpoint_iteration}``.  Chained refiners
-and z-streaming are not ported yet.
+``{setup_dir, output_prefix, checkpoint_iteration}``.
+
+As in the JAX package, a volume deeper than one tiled z pass is streamed
+in z (``predict/zstream.py``) when the net never pools z; other volumes
+are tiled (``predict/scan.py``).  ``BS_ZSTREAM=0`` in the environment
+opts out of streaming.  Chained refiners are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,11 +20,14 @@ from typing import Optional
 
 import torch
 
+from .. import resolve_device
 from ..core.arrays import open_ds
 from ..core.geometry import Roi
 from ..models.model import Model
 from ..models.weights import latest_checkpoint, load_checkpoint, load_params
+from ..models.zstream import stream_eligible
 from ..predict.scan import Predictor, prepare_prediction_outputs, shrink_shape_increase
+from ..predict.zstream import ZStreamPredictor, plan_stream
 from ..utils import tomlio
 
 logger = logging.getLogger(__name__)
@@ -42,6 +49,38 @@ def _find_checkpoint(setup_dir: str, iteration) -> str:
     return latest
 
 
+def _maybe_zstream(model, raw, out_vox, tiled_out_z, device, compute_dtype):
+    """A ``ZStreamPredictor`` where overlap-save z streaming applies, else
+    None (the JAX package's ``_maybe_zstream`` on one device).
+
+    Streaming needs a 3D net that never pools z and a volume deeper than
+    one tiled z pass (``tiled_out_z``: one tiled pass already pays the z
+    context once).  The stream plans its own tile (``plan_stream``): the z
+    step is free, so the memory it frees pays for wider xy tiles."""
+    if os.environ.get("BS_ZSTREAM", "1") != "1":
+        return None
+    if model.dims != 3 or not stream_eligible(model.unet_config):
+        return None
+    if out_vox[0] <= tiled_out_z:
+        return None
+    inc, step, warm = plan_stream(model.net_config, out_vox, device=resolve_device(device))
+    predictor = ZStreamPredictor(
+        model,
+        raw.voxel_size,
+        shape_increase=shrink_shape_increase(model, out_vox, inc),
+        device=device,
+        compute_dtype=compute_dtype,
+        step_z=step,
+        warm_step_z=warm,
+    )
+    logger.info(
+        "z-streaming inference (%d-slice steps, %s input tile)",
+        predictor.s,
+        "x".join(map(str, predictor.input_tile)),
+    )
+    return predictor
+
+
 def run_prediction(
     config_file: str,
     volume: Optional[str] = None,
@@ -51,7 +90,8 @@ def run_prediction(
     compute_dtype=torch.bfloat16,
 ) -> dict:
     """Predict every volume of the config; returns per-volume stats
-    (tiles, seconds, output voxels/s)."""
+    (tiles, seconds, output voxels/s; a stream adds its columns, steps
+    per column and plan)."""
     cfg = tomlio.load(config_file)
     cfg = cfg.get("predict", cfg)
     results = {}
@@ -80,10 +120,18 @@ def run_prediction(
         load_params(model, load_checkpoint(ckpt))
         out_roi = raw.roi if roi is None else roi
         out_vox = tuple(s // v for s, v in zip(out_roi.shape, raw.voxel_size))
-        predictor = Predictor(
+        fitted = shrink_shape_increase(model, out_vox)
+        predictor = _maybe_zstream(
+            model,
+            raw,
+            out_vox,
+            model.net_config["output_shape"][0] + fitted[0],
+            device,
+            compute_dtype,
+        ) or Predictor(
             model,
             raw.voxel_size,
-            shape_increase=shrink_shape_increase(model, out_vox),
+            shape_increase=fitted,
             device=device,
             compute_dtype=compute_dtype,
         )

@@ -15,18 +15,33 @@ Phases, each printing one JSON line:
     in fp32 (the FMA kernel), the seed kernel (K2, and K3 as its Z=1
     case) bit-exact, also on a CREMI-sized stack and with a window of 33
     (the kernel's general body), with the copy width and body each launch
-    took.  Each with its device time (profiler device events, not the
-    Python call), the plain version's, the library call's where one
-    exists, and the least time the card could take;
+    took.  Each with its device time (the conv kernel's from CUDA events
+    around launches queued behind a device sleep, the seed kernel's from
+    profiler device events), the plain version's, the library call's
+    where one exists, and the least time the card could take;
 (c) the main path through the user entry points: a synthetic uint8 raw
     volume (made from --seed) as an uncompressed Zarr, the full-width
     3d_affs setup with numpy-seeded weights saved as a checkpoint,
-    ``run_prediction`` over 2x2x2 output tiles (8, 640, 640) in bf16, then
-    ``run_segmentation`` in ws mode.  Launch counts are zeroed just before
-    each entry point and read just after; both kernels must have run,
-    the conv kernel once per tile at each of its eleven shapes.  Then what
-    the segmentation pays around the seed kernel: ``device_seed_maxima``
-    (upload, kernel, download) timed at two stack sizes;
+    ``run_prediction`` over 2x2x2 output tiles (8, 640, 640) in bf16 on
+    the tiled path (``BS_ZSTREAM=0``), then ``run_segmentation`` in ws
+    mode.  Launch counts are zeroed just before each entry point and read
+    just after; both kernels must have run, the conv kernel once per tile
+    at each of its eleven shapes;
+(z) the streamed path (``zstream``): ``run_prediction`` over a
+    (130, 640, 640) volume, which it streams in z (a warm step, then steps
+    of 64 slices, the last one clipped), then ``run_segmentation``; the
+    conv kernel must have run once per step at each of the warm or steady
+    step's eleven shapes, which are traced on the ``meta`` device and
+    checked against the plain version like (b)'s.  The affinities are
+    compared with the tiled ``Predictor``'s at the stream's xy tile (at
+    most 1 apart on under 1% of voxels) and at the zoo's tile (under 1%
+    differ, counted near the tiled xy seams and away from them).  Then one
+    steady step is profiled at the plan's tile and at ``ZSTREAM_SWEEP``'s
+    and the widest the default budget plans: device time by group, peak
+    memory per effective voxel (what ``predict/zstream.py``'s budget rests
+    on).  Then what the segmentation pays around the seed kernel:
+    ``device_seed_maxima`` (upload, kernel, download) timed at two stack
+    sizes;
 (d) reference checks on a small input: the forward on the card (fp32 and
     bf16) against the CPU fp32 forward, and the segmentation with seeds
     on the card against the CPU path; then one full-size tile forward
@@ -42,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -75,6 +91,25 @@ FWD_ATOL_FP32 = 1e-4
 FWD_ATOL_BF16 = 0.05
 
 
+# the streamed main path's volume: deeper than 96 slices and, at the plan's
+# 64-slice step after a 4-slice warm step, two slices short of the last
+# step's end, so that the clipped overhang runs
+ZSTREAM_SHAPE = (130, 640, 640)
+# steady-step tiles (s new slices, xy, xy) measured for memory and
+# throughput besides the plan's; ``main`` adds the widest the default
+# budget plans (at the least step, 24 slices) on this card
+ZSTREAM_SWEEP = [(24, 732, 732), (64, 732, 732)]
+# streamed against tiled uint8 affinities: the largest difference and the
+# share of voxels that may differ
+ZSTREAM_MAX_DIFF = 1
+ZSTREAM_MAX_SHARE = 1e-2
+# voxels this close to a boundary between two tiled xy tiles count as near
+# a seam
+SEAM_BAND = 8
+# the tiled predictor's input tile: the zoo's input shape + shape_increase
+TILED_INPUT = (32, 412, 412)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -87,15 +122,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 10) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events),
-    after one warm-up call."""
+def cuda_time_ms(fn, iters: int = 10, queued: bool = False) -> float:
+    """Mean time of ``fn`` over ``iters`` calls between two CUDA events,
+    after one warm-up call.  ``queued``: the calls are queued behind a
+    50 ms device sleep, so the events bracket the device's work alone and
+    not the host's time to enqueue it (for kernels shorter than the call)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        rate = torch.cuda.get_device_properties(0).clock_rate  # kHz
+        torch.cuda._sleep(int(50 * rate))
     start.record()
     for _ in range(iters):
         fn()
@@ -161,6 +201,62 @@ def conv_cases():
     ]
 
 
+def trace_kernel_convs(run) -> tuple:
+    """``run()`` (a forward on the ``meta`` device) with the U-Net's conv
+    call wrapped: returns ``(run's result, cases)``, every conv the kernel
+    route takes in call order, as ``(input shape, crop, weight shape,
+    bias)`` in the form of ``conv_cases`` (the input's storage as the
+    shape, its view as a centre crop of it)."""
+    from bootstrapper_torch.models import unet as U
+    from bootstrapper_torch.ops.conv3d import conv3d_supported
+
+    real, cases = U.conv3d, []
+
+    def record(x, w, b=None, **kw):
+        if conv3d_supported(tuple(x.shape), tuple(w.shape)):
+            base = x if x._base is None else x._base
+            xs = (*base.shape[:-1], x.shape[-1])
+            crop = None if tuple(x.shape[1:4]) == tuple(xs[1:4]) else tuple(x.shape[1:4])
+            cases.append((xs, crop, tuple(w.shape), b is not None))
+        return real(x, w, b, **kw)
+
+    U.conv3d = record
+    try:
+        out = run()
+    finally:
+        U.conv3d = real
+    return out, cases
+
+
+def stream_conv_cases(net_config: dict, step_tile, s_warm: int) -> list:
+    """The kernel-route convs of a z stream's warm step (``s_warm`` output
+    slices) and steady step (``step_tile``: s new slices at the stream's
+    xy), traced on the ``meta`` device, named after the tile's convs of
+    ``conv_cases`` (a step runs the same convs in the same order):
+    ``(name, input shape, crop, weight shape, bias)``."""
+    import torch
+
+    from bootstrapper_torch.models import Model
+    from bootstrapper_torch.models.zstream import z_context
+
+    with torch.device("meta"):
+        model = Model(net_config).eval()
+    ctx = z_context(model.unet_config)
+    s, xy = step_tile[0], step_tile[1:]
+    warm_x = torch.empty((1, s_warm + ctx, *xy, 1), device="meta")
+    steady_x = torch.empty((1, s, *xy, 1), device="meta")
+    with torch.no_grad():
+        (_, state), warm = trace_kernel_convs(lambda: model.forward_stream(warm_x, None))
+        _, steady = trace_kernel_convs(lambda: model.forward_stream(steady_x, state))
+    tile_cases = conv_cases()
+    out = []
+    for phase, cases in (("warm", warm), ("steady", steady)):
+        if [(c[2], c[3]) for c in cases] != [(t[3], t[4]) for t in tile_cases]:
+            raise AssertionError(f"the stream's {phase} step runs other kernel convs than a tile")
+        out += [(f"{phase}_{t[0]}", *c) for t, c in zip(tile_cases, cases)]
+    return out
+
+
 def conv_inputs(gen, xs, crop, ws, with_bias, dtype):
     import torch
 
@@ -189,7 +285,10 @@ def conv_work(x, w, b, out):
     return flops, float(nbytes)
 
 
-def check_conv(seed: int) -> list:
+def check_conv(seed: int, cases=None, fp32: bool = True) -> list:
+    """K1 against its plain version at each of ``cases`` (default: the
+    eleven of a tile), in bf16, then (``fp32``) the fp32 route at one
+    shape; one ``kernel_check`` line each."""
     import torch
     import torch.nn.functional as F
 
@@ -197,7 +296,7 @@ def check_conv(seed: int) -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for name, xs, crop, ws, with_bias in conv_cases():
+    for name, xs, crop, ws, with_bias in conv_cases() if cases is None else cases:
         x, w, b = conv_inputs(gen, xs, crop, ws, with_bias, torch.bfloat16)
         packed = C.pack_weights(w, x.dtype)  # once, as the U-Net keeps it
         got = C.conv3d_cuda(x, w, b, packed=packed)
@@ -210,9 +309,12 @@ def check_conv(seed: int) -> list:
             raise AssertionError(f"conv kernel {name}: max |err| {err} outside tolerance")
         xp = x.contiguous().permute(0, 4, 1, 2, 3)  # dense, for the library
         wp = w.permute(4, 3, 0, 1, 2).contiguous()
-        ms = device_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed))
-        plain_ms = device_time_ms(lambda: C.conv3d_plain(x, w, b), iters=2)
-        library_ms = device_time_ms(lambda: F.conv3d(xp, wp, b))
+        # CUDA events around queued launches (profiler device events read
+        # up to half the time of the largest convs, under their bound)
+        ms = cuda_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed), iters=10, queued=True)
+        profiler_ms = device_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed))
+        plain_ms = cuda_time_ms(lambda: C.conv3d_plain(x, w, b), iters=2, queued=True)
+        library_ms = cuda_time_ms(lambda: F.conv3d(xp, wp, b), iters=10, queued=True)
         flops, nbytes = conv_work(x, w, b, got)
         bound_ms, bound_by = bound(flops, PEAK_BF16, nbytes)
         plan = C.tile_plan(ws[3], ws[4])
@@ -222,14 +324,16 @@ def check_conv(seed: int) -> list:
                 "tile": [plan.bm, plan.bn], "stages": plan.stages,
                 "copy_bytes": C._copy_bytes(x),
                 "max_abs_err": err, "rtol": CONV_RTOL, "atol": CONV_ATOL,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "ms": ms, "profiler_ms": profiler_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "tflops": flops / ms / 1e9, "gbytes_per_s": nbytes / ms / 1e6,
             }
         )
         emit({"phase": "kernel_check", "kernel": "conv3d", **rows[-1]})
         del x, w, b, packed, got, ref, diff, xp, wp
-    rows.append(check_conv_fp32(gen))
+        torch.cuda.empty_cache()
+    if fp32:
+        rows.append(check_conv_fp32(gen))
     return rows
 
 
@@ -431,9 +535,15 @@ def write_inputs(work: str, net_config: dict, params, raw_shape, seed: int) -> d
     return {"predict_toml": predict_toml, "segment_toml": segment_toml, "affs": affs}
 
 
-def run_main_path(work: str, net_config: dict, params, raw_shape, seed: int, device) -> dict:
+def run_main_path(
+    work: str, net_config: dict, params, raw_shape, seed: int, device, zstream: bool = False
+) -> dict:
     """``run_prediction`` then ``run_segmentation`` with the launch counts
-    zeroed just before each and read just after."""
+    zeroed just before each and read just after.  ``zstream`` False runs
+    the tiled path (``BS_ZSTREAM=0``, as a user opts out); True leaves the
+    workflow its default, which must then stream.  On the card, the
+    device's busy time over ``run_prediction`` comes from ``torch.profiler``
+    device events (``profiled``)."""
     from bootstrapper_torch.core.arrays import open_ds
     from bootstrapper_torch.ops import (
         conv3d_kernel_launches, launch_counts, reset_launch_counts,
@@ -442,11 +552,24 @@ def run_main_path(work: str, net_config: dict, params, raw_shape, seed: int, dev
 
     paths = write_inputs(work, net_config, params, raw_shape, seed)
 
-    reset_launch_counts()
-    stats = run_prediction(paths["predict_toml"], device=device)
-    predict_counts = launch_counts()
-    conv_launches = conv3d_kernel_launches()
+    saved = os.environ.get("BS_ZSTREAM")
+    if not zstream:
+        os.environ["BS_ZSTREAM"] = "0"
+    try:
+        reset_launch_counts()
+        stats, device_ms = profiled(
+            lambda: run_prediction(paths["predict_toml"], device=device), device
+        )
+        predict_counts = launch_counts()
+        conv_launches = conv3d_kernel_launches()
+    finally:
+        if saved is None:
+            os.environ.pop("BS_ZSTREAM", None)
+        else:
+            os.environ["BS_ZSTREAM"] = saved
     (pstats,) = stats.values()
+    if ("steps_per_column" in pstats) != zstream:
+        raise AssertionError(f"run_prediction took the wrong route: {pstats}")
 
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -459,19 +582,26 @@ def run_main_path(work: str, net_config: dict, params, raw_shape, seed: int, dev
     n_out = len(net_config["outputs"]["3d_affs"]["neighborhood"])
     if a.shape != (n_out, *raw_shape) or a.dtype != np.uint8:
         raise AssertionError(f"affinities {a.shape} {a.dtype}, want {(n_out, *raw_shape)} uint8")
+    # every chunk written once, none read back and rewritten: a tile per
+    # chunk, or the stream's columns times its z chunks
     n_chunks = sum(1 for f in os.listdir(affs.path) if not f.startswith("."))
-    if n_chunks != pstats["tiles"]:
-        raise AssertionError(f"{n_chunks} output chunks written for {pstats['tiles']} tiles")
+    want_chunks = pstats["tiles"]
+    if zstream:
+        chunk_z = math.gcd(pstats["step_z"], pstats["warm_step_z"])
+        want_chunks = pstats["columns"] * -(-raw_shape[0] // chunk_z)
+    if n_chunks != want_chunks:
+        raise AssertionError(f"{n_chunks} output chunks written, want {want_chunks}")
     labels = {}
     for t, path in segs["vol"].items():
         seg = open_ds(path).to_ndarray()
         if seg.shape != tuple(raw_shape) or seg.dtype != np.uint64:
             raise AssertionError(f"segmentation {t}: {seg.shape} {seg.dtype}")
         labels[t] = int(len(np.unique(seg[seg != 0])))
-    return {
+    out = {
         "tiles": pstats["tiles"],
         "predict_seconds": pstats["seconds"],
         "output_voxels_per_sec": pstats["voxels_per_sec"],
+        "output_chunks": n_chunks,
         "segment_seconds": seg_seconds,
         "affs_mean": float(a.mean()),
         "segments_per_threshold": labels,
@@ -480,6 +610,38 @@ def run_main_path(work: str, net_config: dict, params, raw_shape, seed: int, dev
         "segment_launches": segment_counts,
         "affs": a,
     }
+    if device_ms is not None:
+        out["predict_device_ms"] = device_ms
+        # the device's busy time against the wall time of the same call
+        out["predict_idle_share"] = 1 - device_ms / (pstats["seconds"] * 1e3)
+    if zstream:
+        out["plan"] = {
+            k: pstats[k] for k in ("input_tile", "step_z", "warm_step_z", "columns", "steps_per_column")
+        }
+    return out
+
+
+def profiled(fn, device):
+    """``(fn(), device ms)``: on the card, the sum of ``torch.profiler``
+    device events over the call (kernels and copies, which the
+    predictors queue on one stream, so they do not overlap); None on the
+    CPU."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return fn(), None
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    us = sum(
+        ev.time_range.elapsed_us()
+        for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return out, (us / 1e3 if us else None)
 
 
 # -- (d) reference checks on a small input ---------------------------------
@@ -564,6 +726,179 @@ def tile_flops(net_config: dict, input_shape) -> dict:
     return {**flops, "output_voxels": int(np.prod(out))}
 
 
+def stream_step_flops(net_config: dict, step_tile) -> dict:
+    """Operations of one steady z-stream step (``step_tile``: s new slices
+    at the stream's xy), by conv route, and per output voxel: a steady
+    step computes exactly s more output slices at every conv than a tile
+    of the same xy, so it is the difference of ``tile_flops`` at two z
+    extents s apart."""
+    from bootstrapper_torch.models.model import unet_config
+    from bootstrapper_torch.models.zstream import z_context
+
+    s, xy = step_tile[0], tuple(step_tile[1:])
+    z0 = z_context(unet_config(net_config)) + 1
+    hi, lo = tile_flops(net_config, (z0 + s, *xy)), tile_flops(net_config, (z0, *xy))
+    out_voxels = hi["output_voxels"] - lo["output_voxels"]
+    flops = {k: hi[k] - lo[k] for k in ("kernel", "library")}
+    return {**flops, "output_voxels": out_voxels, "per_output_voxel": sum(flops.values()) / out_voxels}
+
+
+def stream_step_profile(model, step_tile, s_warm: int, seed: int) -> dict:
+    """One steady z-stream step of ``step_tile`` (s new slices, xy, xy)
+    after a warm step and a first steady step, through
+    ``ZStreamPredictor.step`` on device tensors of random bytes: wall ms;
+    device ms, its groups and the idle share of one profiled step
+    (``torch.profiler`` device events); the step's time between CUDA events
+    (queued) and the output Mvox/s and TFLOP/s it gives; peak memory and
+    the part of it the step itself takes beyond the weights and the stream
+    state; FLOPs per output voxel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bootstrapper_torch.predict.zstream import ZStreamPredictor
+
+    nc = model.net_config
+    s, xy = step_tile[0], step_tile[1]
+    inc = xy - nc["input_shape"][1]
+    zp = ZStreamPredictor(
+        model, (40, 4, 4), shape_increase=[0, inc, inc], device="cuda", step_z=s, warm_step_z=s_warm
+    )
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(shape):
+        return torch.randint(0, 256, (1, *shape, 1), generator=gen, device="cuda", dtype=torch.uint8)
+
+    _, state = zp.step(rand(zp.warm_input_tile), None)
+    x = rand(tuple(step_tile))  # a steady step takes s new slices
+    outs, state = zp.step(x, state)
+    del outs
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs, state = zp.step(x, state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del outs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outs, state = zp.step(x, state)
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    # the step once more between CUDA events, queued behind a device sleep
+    rate = torch.cuda.get_device_properties(0).clock_rate  # kHz
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(200 * rate))
+    start.record()
+    outs, state = zp.step(x, state)
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end)
+    del outs, state, x
+    torch.cuda.empty_cache()
+    device_ms, groups, top = device_groups(prof)
+    if not device_ms:
+        raise RuntimeError("torch.profiler recorded no device event in a stream step")
+    flops = stream_step_flops(nc, step_tile)
+    eff = (s + 8) * xy * xy  # the planner's effective input voxels
+    step_bytes = peak - held
+    return {
+        "step_tile": list(step_tile), "output_tile": list(zp.output_tile),
+        "wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms, "device_ms": device_ms,
+        "event_ms": event_ms, "idle_share": 1 - device_ms / profiled_wall_ms,
+        "groups_ms": groups, "top_kernels_ms": top,
+        "output_mvox_per_s_device": flops["output_voxels"] / event_ms / 1e3,
+        "flops_per_output_voxel": flops["per_output_voxel"],
+        "kernel_route_flop_share": flops["kernel"] / (flops["kernel"] + flops["library"]),
+        "tflops_device": (flops["kernel"] + flops["library"]) / event_ms / 1e9,
+        "peak_memory_gb": peak / 1e9, "held_gb": held / 1e9, "step_gb": step_bytes / 1e9,
+        "effective_voxels": eff, "step_bytes_per_effective_voxel": step_bytes / eff,
+    }
+
+
+def zstream_phase(net_config: dict, params, raw_shape, seed: int, device="cuda") -> dict:
+    """The streamed main path: ``run_prediction`` (which streams this deep
+    volume) then ``run_segmentation``, as ``run_main_path``; then the tiled
+    ``Predictor`` over the same volume twice, and the affinities compared:
+    at the stream's xy tile (``vs_tiled``: only the z walk differs; ``main``
+    holds it to its bound), and at the zoo's tile (``vs_zoo_tiled``: a
+    tile's outputs within a few voxels of its xy edges depend on where the
+    edge is, through the upsample's edge clamp, so the differences are
+    counted near the tiled seams and away from them)."""
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models import Model, load_params
+    from bootstrapper_torch.predict.scan import Predictor, prepare_prediction_outputs, tile_rois
+
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_zstream_") as work:
+        res = run_main_path(work, net_config, params, raw_shape, seed, device, zstream=True)
+        raw = open_ds(os.path.join(work, "vol.zarr", "raw"))
+        model = load_params(Model(net_config), params)
+        xy_inc = res["plan"]["input_tile"][1] - net_config["input_shape"][1]
+        tiled = {}
+        for name, inc in (("vs_tiled", [0, xy_inc, xy_inc]), ("vs_zoo_tiled", None)):
+            pred = Predictor(model, raw.voxel_size, shape_increase=inc, device=device)
+            outs = prepare_prediction_outputs(
+                os.path.join(work, f"{name}.zarr"), model, raw.roi, raw.voxel_size, pred
+            )
+            stats = pred.predict(raw, outs)
+            seams = {
+                d: sorted({int(t.begin[d] // raw.voxel_size[d]) for t in tile_rois(raw.roi, pred.output_size)} - {0})
+                for d in (1, 2)
+            }
+            tiled[name] = (pred.output_tile, stats, outs["3d_affs"].to_ndarray(), seams)
+    got = res.pop("affs")
+    for name, (tile, stats, want, seams) in tiled.items():
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        # voxels within SEAM_BAND of a boundary between two tiled xy tiles
+        near = np.zeros(diff.shape[2:], dtype=bool)
+        for d, starts in seams.items():
+            for b in starts:
+                band = [slice(None), slice(None)]
+                band[d - 1] = slice(max(0, b - SEAM_BAND), b + SEAM_BAND)
+                near[tuple(band)] = True
+        differs = diff != 0
+        res[name] = {
+            "output_tile": list(tile), "tiled_tiles": stats["tiles"], "tiled_seconds": stats["seconds"],
+            "tiled_output_voxels_per_sec": stats["voxels_per_sec"],
+            "max_abs_diff": int(diff.max()), "differing_share": float(differs.mean()),
+            "voxels_by_diff": {int(d): int((diff == d).sum()) for d in np.unique(diff) if d},
+            "xy_seams": seams, "seam_band": SEAM_BAND,
+            "differing_near_seams": int(differs[:, :, near].sum()),
+            "differing_elsewhere": int(differs[:, :, ~near].sum()),
+            "max_abs_diff_elsewhere": int(diff[:, :, ~near].max(initial=0)),
+        }
+    return res
+
+
+def per_voxel(flops: dict) -> float:
+    """Operations per output voxel of a ``tile_flops`` count."""
+    return (flops["kernel"] + flops["library"]) / flops["output_voxels"]
+
+
+def device_groups(prof) -> tuple:
+    """``(device ms, ms by group, the 8 longest kernels)`` of a profile's
+    device events: the conv kernel, the library's convs, everything else."""
+    import torch
+
+    by_name = {}
+    for ev in prof.events():  # device-side events only: kernels, copies
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
+    groups = {"conv3d_kernel": 0.0, "library_conv": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        if "conv3d_kernel" in low:
+            groups["conv3d_kernel"] += ms
+        elif any(k in low for k in ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass")):
+            groups["library_conv"] += ms
+        else:
+            groups["other"] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return sum(by_name.values()), groups, [[n[:120], ms] for n, ms in top]
+
+
 def tile_breakdown(net_config: dict, params, seed: int) -> dict:
     """Device time of one full-size tile forward (bf16), by kernel, from
     ``torch.profiler``; ``None`` where the profiler saw no device time."""
@@ -598,35 +933,20 @@ def tile_breakdown(net_config: dict, params, seed: int) -> dict:
     repacked = launch_counts()["conv3d.pack"] - packs_before
     if repacked:
         raise AssertionError(f"a warm forward packed weights {repacked} times")
-    by_name = {}
-    for ev in prof.events():  # device-side events only: kernels, copies
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            ms = ev.time_range.elapsed_us() / 1e3
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
-    groups = {"conv3d_kernel": 0.0, "library_conv": 0.0, "other": 0.0}
-    for name, ms in by_name.items():
-        low = name.lower()
-        if "conv3d_kernel" in low:
-            groups["conv3d_kernel"] += ms
-        elif any(k in low for k in ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass")):
-            groups["library_conv"] += ms
-        else:
-            groups["other"] += ms
-    device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    device_ms, groups, top = device_groups(prof)
     flops = tile_flops(net_config, pred.input_tile)
     return {
         "input_tile": list(pred.input_tile),
         "flops_kernel_route": flops["kernel"],
         "flops_library_route": flops["library"],
-        "flops_per_output_voxel": (flops["kernel"] + flops["library"]) / flops["output_voxels"],
+        "flops_per_output_voxel": per_voxel(flops),
         "wall_ms": wall_ms,
         "profiled_wall_ms": profiled_wall_ms,
         "device_ms": device_ms or None,
         # kernel time and wall time of the same (profiled) forward
         "idle_share": (1 - device_ms / profiled_wall_ms) if device_ms else None,
         "groups_ms": groups if device_ms else None,
-        "top_kernels_ms": [[n[:120], ms] for n, ms in top],
+        "top_kernels_ms": top,
         "peak_memory_gb": peak_gb,
         "weight_packs_in_profiled_forward": repacked,
     }
@@ -643,10 +963,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from bootstrapper_torch import native
     from bootstrapper_torch.__main__ import doctor
-    from bootstrapper_torch.models import init_params_numpy
+    from bootstrapper_torch.models import Model, init_params_numpy, load_params
     from bootstrapper_torch.models.zoo import get_net_config
     from bootstrapper_torch.ops import _build, launch_counts
     from bootstrapper_torch.ops import conv3d as conv3d_ops
+    from bootstrapper_torch.predict.zstream import plan_stream
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -711,13 +1032,75 @@ def main(argv=None) -> int:
             f"(not one per tile at {off_plan}), seed kernel launches {seed_launches}"
         )
 
+    # the streamed path: a deep volume, run_prediction's default route
+    zs = zstream_phase(net_config, params, ZSTREAM_SHAPE, args.seed)
+    plan = zs.pop("plan")
+    # a steady step takes step_z new slices at the stream tile's xy
+    step_tile = [plan["step_z"], *plan["input_tile"][1:]]
+    stream_cases = stream_conv_cases(net_config, step_tile, plan["warm_step_z"])
+    stream_rows = check_conv(args.seed, stream_cases, fp32=False)
+    # one launch per step at each of the step's kernel convs: the warm
+    # step's once per column, the steady step's once per later step
+    columns, steps = plan["columns"], plan["steps_per_column"]
+    by_stream = zs.pop("conv_launches")
+    for row in stream_rows:
+        row["launches"] = by_stream.pop((tuple(row["x"]), tuple(row["w"])), 0)
+    want = {
+        r["shape"]: columns if r["shape"].startswith("warm_") else columns * (steps - 1)
+        for r in stream_rows
+    }
+    off_plan = by_stream or [r["shape"] for r in stream_rows if r["launches"] != want[r["shape"]]]
+    stream_conv = zs["predict_launches"]["conv3d.kernel"]
+    stream_seed = zs["segment_launches"]["seed_maxima.kernel"]
+    emit(
+        {
+            "phase": "zstream", "volume": list(ZSTREAM_SHAPE), "plan": plan, **zs,
+            "conv_launches": {r["shape"]: r["launches"] for r in stream_rows},
+            "flops_per_output_voxel": {
+                "tiled": per_voxel(tile_flops(net_config, TILED_INPUT)),
+                "steady": stream_step_flops(net_config, step_tile)["per_output_voxel"],
+            },
+        }
+    )
+    if stream_conv != len(conv_cases()) * columns * steps or off_plan or stream_seed == 0:
+        raise AssertionError(
+            f"zstream: conv kernel launches {stream_conv} over {columns} columns x {steps} "
+            f"steps (off plan: {off_plan}), seed kernel launches {stream_seed}"
+        )
+    # the steady step at the plan's tile, and the memory and throughput
+    # sweep behind the planner's default budget
+    model = load_params(Model(net_config), params)
+    inc, s_wide, _ = plan_stream(net_config, (10_000, 20_000, 20_000), device="cuda")
+    widest = [s_wide, net_config["input_shape"][1] + inc[1], net_config["input_shape"][2] + inc[2]]
+    sweep = [list(t) for t in ZSTREAM_SWEEP] + [widest]
+    for tile in [step_tile] + [t for t in sweep if t != step_tile]:
+        emit(
+            {
+                "phase": "zstream_step", "plan": list(tile) == step_tile,
+                **stream_step_profile(model, tile, plan["warm_step_z"], args.seed),
+            }
+        )
+    del model
+
     for shape in [(8, 640, 640), (125, 1250, 1250)]:
         emit({"phase": "seed_call", **time_seed_call(args.seed, shape)})
 
     emit({"phase": "reference", **check_reference(net_config, params, affs, args.seed)})
     emit({"phase": "tile_breakdown", **tile_breakdown(net_config, params, args.seed)})
+    # the stream against the tiled path at its own xy tile, and the share of
+    # voxels that differ from the zoo-tiled path, seams included
+    vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
+    if (
+        vs_tiled["max_abs_diff"] > ZSTREAM_MAX_DIFF
+        or vs_tiled["differing_share"] >= ZSTREAM_MAX_SHARE
+        or vs_zoo["differing_share"] >= ZSTREAM_MAX_SHARE
+    ):
+        raise AssertionError(f"streamed affinities differ from the tiled ones: {vs_tiled}, {vs_zoo}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "counts_now": launch_counts()})
 
+    conv_rows += stream_rows
+    conv_launches += stream_conv
+    seed_launches += stream_seed
     top_conv = max(conv_rows, key=lambda r: r["ms"] * r["launches"])
     top_seed = seed_rows[0]
     kernels = [

@@ -10,9 +10,12 @@ import pytest
 import torch
 from _torch_seed_cases import EDGE_CASES, scipy_seeds, seed_stack
 
+from bootstrapper_torch.models import Model, init_params_numpy, load_params
 from bootstrapper_torch.models.unet import center_crop
+from bootstrapper_torch.models.zoo import get_net_config
 from bootstrapper_torch.ops import conv3d as C
 from bootstrapper_torch.ops import seeds as S
+from bootstrapper_torch.predict._pipeline import DeviceIO
 
 
 @pytest.fixture
@@ -178,3 +181,56 @@ def test_seed_kernel_raises_for_a_window_beyond_shared_memory(cuda):
     with pytest.raises(RuntimeError, match="seed kernel launch failed"):
         S.seed_maxima_3d(d, d > -1, 1000)
     assert S.COUNTS["kernel"] == before
+
+
+def _stream_net_config():
+    """A narrow 3d_affs net, 4 -> 24 -> 144 channels (the 144-channel
+    convs take the kernel, the rest the library), z context 20."""
+    nc = get_net_config("3d_affs")
+    nc.update(
+        num_fmaps=4, fmap_inc_factor=6, input_shape=[24, 48, 48], output_shape=[4, 8, 8],
+        shape_increase=[0, 0, 0], downsample_factors=[[1, 2, 2]] * 2,
+        kernel_size_down=[[[3, 3, 3], [3, 3, 3]]] * 3, kernel_size_up=[[[3, 3, 3], [3, 3, 3]]] * 2,
+    )
+    return nc
+
+
+@pytest.mark.cuda
+def test_stream_step_matches_forward_bf16(cuda):
+    """On the card in bf16: a warm step of 2 output slices and three
+    steady steps of 3 against the forward on the concatenated input.  The
+    kernel sums each output voxel in the same order whatever the tile; the
+    library's narrow convs may pick other algorithms at other shapes, so a
+    bf16 rounding may flip and carry through the later layers (atol 2^-5 on
+    sigmoid outputs, a few uint8 steps)."""
+    nc = _stream_net_config()
+    model = load_params(Model(nc), init_params_numpy(nc, 0)).to(cuda, torch.bfloat16).eval()
+    x = np.random.default_rng(0).uniform(-1, 1, (1, 31, 56, 56, 1)).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda)
+    before = C.COUNTS["kernel"]
+    with torch.no_grad():
+        full = model(x)
+        parts, state = [], None
+        for a, b in [(0, 22), (22, 25), (25, 28), (28, 31)]:
+            outs, state = model.forward_stream(x[:, a:b], state)
+            parts.append(outs)
+    torch.cuda.synchronize()
+    assert C.COUNTS["kernel"] > before
+    for name in full:
+        got = torch.cat([p[name] for p in parts], dim=1)
+        assert got.shape == full[name].shape
+        np.testing.assert_allclose(got.cpu().numpy(), full[name].cpu().numpy(), atol=2.0**-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_device_io_keeps_a_pinned_buffer_per_shape(cuda):
+    """Items of two shapes in any order: each slot pins one buffer per
+    (name, shape) at first use and reuses it; outputs stay right."""
+    io = DeviceIO(cuda)
+    shapes = [(1, 6, 8, 8, 1), (1, 2, 8, 8, 1), (1, 2, 8, 8, 1), (1, 6, 8, 8, 1)] * 2
+    for i, shape in enumerate(shapes):
+        event, outs = io.run(np.full(shape, i, np.uint8), lambda t: {"y": t + 1})
+        event.synchronize()
+        assert outs["y"].is_pinned() and (outs["y"].numpy() == i + 1).all()
+    for slot in io._slots:
+        assert len(slot._bufs) == 4  # ("in", "y") x two shapes
