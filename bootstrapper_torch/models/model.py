@@ -4,7 +4,8 @@ instantiated from a net config dict (the contents of a
 
 ``Model`` is an ``nn.Module``: ``model(x) -> {name: (N, D, H, W, C)
 fp32}`` for channels-last input ``x``; ``forward_stream`` is one step of
-overlap-save z streaming (``models/zstream.py``).  Weights come from
+overlap-save z streaming (``models/zstream.py``).  ``multi_output_loss``
+is the training loss.  Weights come from
 JAX-layout params through ``models/weights.py``.  3D setups only so far.
 """
 
@@ -100,3 +101,17 @@ class Model(nn.Module):
 
         z, new_state = unet_stream_step(self.unet, x.to(self.compute_dtype), state)
         return {name: head(z[0]).float() for name, head in self.heads.items()}, new_state
+
+
+def weighted_mse_loss(pred, target, weights):
+    """Masked MSE: the weighted sum of squared errors over the count of
+    elements with ``weights > 0`` (at least 1), as the JAX package's
+    ``models/model.py:weighted_mse_loss``; no host sync."""
+    scale = weights * (pred - target) ** 2
+    count = torch.count_nonzero(weights > 0)
+    return torch.sum(scale) / torch.clamp(count, min=1).to(scale.dtype)
+
+
+def multi_output_loss(preds: dict, targets: dict, weights: dict):
+    """Sum of the weighted-MSE losses of all outputs."""
+    return sum(weighted_mse_loss(preds[k], targets[k], weights[k]) for k in preds)

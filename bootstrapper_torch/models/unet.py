@@ -16,7 +16,9 @@ JAX params carry over unchanged (``models/weights.py``).
   setup has.
 
 Every conv goes through ``ops.conv3d.conv3d``, which routes it by shape to
-the hand-written Hopper kernel or to ``torch.nn.functional.conv3d``.  The
+the hand-written Hopper kernel or to ``torch.nn.functional.conv3d``; with
+grad enabled the kernel route is ``ops.conv3d.Conv3dFunction``, so the net
+trains with fp32 parameters and convs in the model's ``compute_dtype``.  The
 TPU fold, lazy-decode and z-slab machinery of the JAX package is layout
 work that computes nothing new and is not ported.
 """
@@ -84,7 +86,10 @@ class UNetConfig:
 
 
 # in place, on tensors this module has just made: a conv output keeps the
-# layout ``ops.conv3d.empty_channels_last`` gave it
+# layout ``ops.conv3d.empty_channels_last`` gave it.  Autograd allows it:
+# no backward saves what these update (a conv saves its output only where
+# ReLU is fused into it, and that output is never updated), and the
+# kernel route's outputs are no views (``ops.conv3d.Conv3dFunction``)
 _ACTIVATIONS = {"relu": torch.relu_, "sigmoid": torch.sigmoid_}
 
 
@@ -112,7 +117,10 @@ class Conv(nn.Module):
         """``pack_weights`` of the input-channel slice ``[lo, hi)`` of
         ``w`` for ``dtype``, made once per (parameter version, storage,
         dtype, device, slice): an in-place update of ``w``
-        (``load_state_dict``) or a move (``.to``) drops what was packed."""
+        (``load_state_dict``, an optimizer step) or a move (``.to``) drops
+        what was packed.  An update must bump ``w._version``: fused Adam
+        does not, so the port's trainer does not use it
+        (``train/loop.py:create_train_state``)."""
         w = self.w
         of = self._packed_of  # (the tensor packed from, its version then)
         if (

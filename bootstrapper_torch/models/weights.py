@@ -7,6 +7,15 @@ DHWIO, biases), saved as ``model_checkpoint_<step>`` npz files with
 ``unet.l_conv.0.layers.0.w`` and ``head_<name>/...`` ->
 ``heads.<name>....``.  Folded-weight caches (``_pf*`` entries) and the
 empty upsample entries of constant-upsample nets carry no parameters.
+
+The optimizer state carries across too (``opt_leaves_to_jax`` /
+``opt_leaves_from_jax``): the JAX trainer's checkpoint holds optax Adam's
+state as flat leaves ``opt/0000...`` in ``jax.tree_util.tree_leaves``
+order of ``(ScaleByAdamState(count, mu, nu), EmptyState())``: the count,
+then every first moment, then every second moment, each in the params
+tree's leaf order (dict keys sorted as strings, list items by index).
+torch's Adam keeps the same moments per parameter (``exp_avg``,
+``exp_avg_sq``) and the count as each parameter's ``step``.
 """
 
 from __future__ import annotations
@@ -177,3 +186,68 @@ def load_params(model, params):
     """Load a JAX-layout params tree into ``model`` (strict)."""
     model.load_state_dict(params_from_jax(params), strict=True)
     return model
+
+
+def jax_path(name: str) -> str:
+    """A ``state_dict`` key -> its path in the JAX params tree (the inverse
+    of ``params_from_jax``'s renaming)."""
+    if name.startswith("heads."):
+        head, rest = name[len("heads.") :].split(".", 1)
+        return f"head_{head}/" + rest.replace(".", "/")
+    return name.replace(".", "/")
+
+
+def _leaf_key(path: str) -> tuple:
+    """Sort key of a params path in ``jax.tree_util`` leaf order: dict keys
+    as strings, list indices as numbers."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p) for p in path.split("/"))
+
+
+def params_in_leaf_order(model) -> list:
+    """``(JAX path, parameter)`` of ``model`` in the JAX params tree's leaf
+    order."""
+    named = [(jax_path(n), p) for n, p in model.named_parameters()]
+    return sorted(named, key=lambda kv: _leaf_key(kv[0]))
+
+
+def params_to_jax(model) -> dict:
+    """``model``'s parameters as ``{JAX path: numpy array}``."""
+    return {path: p.detach().cpu().numpy() for path, p in params_in_leaf_order(model)}
+
+
+def opt_leaves_to_jax(model, optimizer) -> list:
+    """torch Adam's state as optax Adam's leaves: ``[count (int32), mu...,
+    nu...]``; a parameter not yet stepped has zero moments and count 0."""
+    mus, nus, counts = [], [], set()
+    for _, p in params_in_leaf_order(model):
+        st = optimizer.state.get(p)
+        if st:
+            mus.append(st["exp_avg"].detach().float().cpu().numpy())
+            nus.append(st["exp_avg_sq"].detach().float().cpu().numpy())
+            counts.add(int(st["step"]))
+        else:
+            mus.append(np.zeros(tuple(p.shape), np.float32))
+            nus.append(np.zeros(tuple(p.shape), np.float32))
+            counts.add(0)
+    if len(counts) != 1:
+        raise ValueError(f"parameters were stepped unequally often: {sorted(counts)}")
+    return [np.asarray(counts.pop(), np.int32), *mus, *nus]
+
+
+def opt_leaves_from_jax(model, optimizer, leaves) -> None:
+    """Set torch Adam's state from optax Adam's leaves (``opt_leaves_to_jax``
+    order); the count becomes every parameter's ``step``."""
+    params = params_in_leaf_order(model)
+    n = len(params)
+    if len(leaves) != 1 + 2 * n:
+        raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters, want {1 + 2 * n}")
+    count = int(np.asarray(leaves[0]))
+    for i, (path, p) in enumerate(params):
+        mu, nu = np.asarray(leaves[1 + i]), np.asarray(leaves[1 + n + i])
+        if mu.shape != tuple(p.shape) or nu.shape != tuple(p.shape):
+            raise ValueError(f"{path}: moments {mu.shape}/{nu.shape}, parameter {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.tensor(mu, dtype=p.dtype, device=p.device),
+            "exp_avg_sq": torch.tensor(nu, dtype=p.dtype, device=p.device),
+        }

@@ -16,6 +16,14 @@ Routing (``conv3d``) is decided by shape and dtype before any launch:
   levels) runs ``torch.nn.functional.conv3d``, just as the JAX package
   leaves those shapes to XLA.
 
+With grad enabled, a kernel-route conv goes through ``Conv3dFunction``: its
+forward is the kernel (on the CPU the plain version) and its backward
+gives dX, dW and db through ``aten.convolution_backward`` (the products
+``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` compute).  The JAX
+package has no backward kernel for its Pallas conv: it trains through
+XLA's own conv gradients.  ``conv3d_cuda`` itself gives no gradient and
+raises where autograd would need one.
+
 The kernels read weights in their own layout (``pack_weights``): the
 callers that own parameters pack once (the U-Net keeps the packed form
 beside each conv's parameter) and hand it over where the kernel launches; a
@@ -79,6 +87,8 @@ def conv3d(x, w, b=None, *, relu: bool = False, pack=None):
     ``pack()`` gives ``pack_weights(w, x.dtype)`` as the caller keeps it; it
     is called only where the kernel launches."""
     if conv3d_supported(tuple(x.shape), tuple(w.shape)):
+        if torch.is_grad_enabled():
+            return Conv3dFunction.apply(x, w, b, relu, pack)
         if x.is_cuda:
             packed = None if pack is None else pack()
             return conv3d_cuda(x, w, b, relu=relu, packed=packed)
@@ -86,6 +96,68 @@ def conv3d(x, w, b=None, *, relu: bool = False, pack=None):
         return conv3d_plain(x, w, b, relu=relu)
     COUNTS["library"] += 1
     return conv3d_library(x, w, b, relu=relu)
+
+
+class Conv3dFunction(torch.autograd.Function):
+    """K1 with a gradient: ``apply(x, w, b, relu, pack)``.
+
+    Forward: ``conv3d_cuda`` on a CUDA tensor, ``conv3d_plain`` on a CPU
+    tensor (counted as ``conv3d`` counts them), its output in the layout
+    of ``empty_channels_last`` on both, as a tensor that is no view, so
+    that the U-Net may add to it in place.  ``w`` is the parameter (or a
+    channel slice of it) in its own dtype, cast to ``x``'s for the
+    product; the gradients come back in the inputs' dtypes.  Backward: dX
+    and dW in ``x``'s dtype from one ``aten.convolution_backward`` (cuDNN
+    on the card), db as an fp32 sum; where ReLU was fused, the saved
+    output masks the incoming gradient first."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, relu, pack):
+        if x.is_cuda:
+            out = conv3d_cuda(x, w, b, relu=relu, packed=None if pack is None else pack())
+        else:
+            COUNTS["plain"] += 1
+            y = conv3d_plain(x, w, b, relu=relu)
+            out = empty_channels_last(tuple(y.shape), y.dtype, y.device)
+            out.copy_(y)
+        out = _not_a_view(out)
+        ctx.relu = relu
+        ctx.b_dtype = None if b is None else b.dtype
+        ctx.save_for_backward(x, w, out if relu else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        if out is not None:
+            g = g.masked_fill(out <= 0, 0)
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = dw = db = None
+        if need_x or need_w:
+            gn = g.to(x.dtype).permute(0, 4, 1, 2, 3)
+            wn = w.to(x.dtype).permute(4, 3, 0, 1, 2)
+            dxn, dwn, _ = torch.ops.aten.convolution_backward(
+                gn, x.permute(0, 4, 1, 2, 3), wn, None,
+                [1, 1, 1], [0, 0, 0], [1, 1, 1], False, [0, 0, 0], 1,
+                [need_x, need_w, False],
+            )
+            if need_x:
+                dx = dxn.permute(0, 2, 3, 4, 1)
+            if need_w:
+                dw = dwn.permute(2, 3, 4, 1, 0).to(w.dtype)
+        if need_b and ctx.b_dtype is not None:
+            db = g.float().sum((0, 1, 2, 3)).to(ctx.b_dtype)
+        return dx, dw, db, None, None
+
+
+def _not_a_view(t):
+    """``t``'s memory as a tensor that is no view.  An output of a custom
+    Function that is a view may not be updated in place; the kernel's
+    outputs of 300 and 1500 channels are views of a buffer with the
+    channel pitch padded to 16 bytes (``empty_channels_last``)."""
+    if t._base is None:
+        return t
+    return t.new_empty(0).set_(t.untyped_storage(), t.storage_offset(), t.shape, t.stride())
 
 
 def conv3d_plain(x, w, b=None, *, relu: bool = False):
@@ -277,9 +349,16 @@ def conv3d_cuda(x, w, b=None, *, relu: bool = False, packed=None):
     else gathered with cp.async; stores of 16 bytes staged through shared
     memory, of bf16 pairs or of single values, the widest the output's
     voxel pitch allows.  The output is laid out by ``empty_channels_last``.
-    Raises on anything the kernel does not take."""
+    Raises on anything the kernel does not take, and where autograd would
+    need a gradient of it (grad enabled and an input that requires grad):
+    ``conv3d`` routes such calls through ``Conv3dFunction``."""
     if not x.is_cuda:
         raise ValueError("conv3d_cuda needs a CUDA tensor")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
+        raise RuntimeError(
+            "conv3d_cuda gives no gradient; call conv3d (Conv3dFunction) "
+            "where an input requires grad, or disable grad"
+        )
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"conv3d kernel takes bf16 or fp32, got {x.dtype}")
     if x.dim() != 5 or w.dim() != 5:

@@ -45,7 +45,22 @@ Phases, each printing one JSON line:
 (d) reference checks on a small input: the forward on the card (fp32 and
     bf16) against the CPU fp32 forward, and the segmentation with seeds
     on the card against the CPU path; then one full-size tile forward
-    under ``torch.profiler``, its device time grouped by kernel.
+    under ``torch.profiler``, its device time grouped by kernel;
+(t) the training slice (``train``): a synthetic sample (uint8 raw of
+    TRAIN_VOLUME, Voronoi labels with background, a mask) as Zarr with a
+    ``train.toml``; K1 against its plain version at the eleven kernel
+    shapes of a training forward at the net's (32,196,196) input (traced on
+    the ``meta`` device); ``Conv3dFunction`` (K1 with a gradient) against
+    autograd through the plain version in fp32; on one batch, the bf16
+    net's gradients (kernel route) against fp32 ones (library route), each
+    parameter's nonzero and within GRAD_REL_L2; OVERFIT_STEPS steps on that
+    batch, whose loss must fall, and no packed weight stale after them;
+    ``run_training`` to TRAIN_ITERATIONS[0], again to [1] (it must resume),
+    with launch counts zeroed before and read after (K1 once per iteration
+    at each of the eleven shapes), then ``run_prediction`` with the
+    checkpoint it wrote; last, the steady step by parts (loader wait, then
+    CUDA events and host clock around transform, forward, backward and
+    optimizer), its device groups, idle share, peak memory and TFLOP/s.
 
 Then the card's name and power limit as nvidia-smi reports them, the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -89,6 +104,23 @@ CONV_ATOL_FP32 = 1e-4
 # [0, 1]: fp32 differs only by summation order; bf16 rounds every layer
 FWD_ATOL_FP32 = 1e-4
 FWD_ATOL_BF16 = 0.05
+# Conv3dFunction in fp32 against autograd through the plain version: the
+# kernel, cuDNN's backward and the plain matmuls sum the same fp32 products
+# in other orders (thousands of terms): the largest difference within this
+# share of the reference's largest value
+FUNCTION_RTOL = 1e-4
+# the bf16 net's gradients (kernel route) against fp32 ones (library
+# route): relative L2 per parameter tensor
+GRAD_REL_L2 = 0.05
+
+# the training slice: the synthetic sample, the iterations of the two
+# run_training calls (the second resumes), the overfit steps, the timed
+# steps, and the predicted ROI (voxel offset, shape)
+TRAIN_VOLUME = (64, 512, 512)
+TRAIN_ITERATIONS = (60, 80)
+OVERFIT_STEPS = 200
+TIMED_STEPS = 10
+TRAIN_PREDICT_ROI = ((16, 96, 96), (16, 320, 320))
 
 
 # the streamed main path's volume: deeper than 96 slices and, at the plan's
@@ -692,25 +724,28 @@ def tile_flops(net_config: dict, input_shape) -> dict:
 
     cfg = unet_config(net_config)
     nf, inc = cfg.num_fmaps, cfg.fmap_inc_factor
-    flops = {"kernel": 0.0, "library": 0.0}
+    # "on_input": the part of both routes whose convs read the net's input
+    flops = {"kernel": 0.0, "library": 0.0, "on_input": 0.0}
 
-    def conv(shape, parts, co, k):
+    def conv(shape, parts, co, k, on_input=False):
         out = [s - kk + 1 for s, kk in zip(shape, k)]
         for ci in parts:
             route = "kernel" if conv3d_supported((1, *shape, ci), (*k, ci, co)) else "library"
             flops[route] += 2.0 * np.prod(out) * ci * co * np.prod(k)
+            if on_input:
+                flops["on_input"] += 2.0 * np.prod(out) * ci * co * np.prod(k)
         return out
 
-    def conv_pass(shape, parts, co, kernels):
+    def conv_pass(shape, parts, co, kernels, on_input=False):
         for i, k in enumerate(kernels):
-            shape = conv(shape, parts if i == 0 else [co], co, k)
-        conv(shape, parts, co, (1, 1, 1))  # residual, on the crop
+            shape = conv(shape, parts if i == 0 else [co], co, k, on_input and i == 0)
+        conv(shape, parts, co, (1, 1, 1), on_input)  # residual, on the crop
         return shape
 
     def rec(level, shape):
         i = cfg.num_levels - level - 1
         ci = cfg.in_channels if i == 0 else nf * inc ** (i - 1)
-        shape = conv_pass(shape, [ci], nf * inc**i, cfg.kernel_size_down[i])
+        shape = conv_pass(shape, [ci], nf * inc**i, cfg.kernel_size_down[i], on_input=i == 0)
         if level == 0:
             return shape
         f = cfg.downsample_factors[i]
@@ -883,7 +918,9 @@ def device_groups(prof) -> tuple:
 
     by_name = {}
     for ev in prof.events():  # device-side events only: kernels, copies
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # (not the device-side ranges of user annotations such as
+        # "Optimizer.step", which overlap the kernels they enclose)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             ms = ev.time_range.elapsed_us() / 1e3
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
     groups = {"conv3d_kernel": 0.0, "library_conv": 0.0, "other": 0.0}
@@ -950,6 +987,483 @@ def tile_breakdown(net_config: dict, params, seed: int) -> dict:
         "peak_memory_gb": peak_gb,
         "weight_packs_in_profiled_forward": repacked,
     }
+
+
+# -- (t) the training slice ------------------------------------------------
+
+
+def voronoi_sample(shape, n_cells: int, seed: int, device) -> dict:
+    """A synthetic training sample made from ``seed`` on ``device``: Voronoi
+    labels (z distances weighted 10x, as 40 nm sections against 4 nm
+    pixels) with ids past 2^32 and a tenth of the cells as background, raw
+    with dark membranes between the cells and noise, a mask with a band of
+    sections masked out.  Numpy arrays."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pts = torch.tensor(rng.uniform(0, 1, (n_cells, 3)) * np.array(shape), dtype=torch.float32, device=device)
+    ids = torch.tensor(rng.integers(1, 2**40, n_cells).astype(np.int64), device=device)
+    ids[torch.tensor(rng.random(n_cells) < 0.1, device=device)] = 0
+    yy, xx = torch.meshgrid(
+        torch.arange(shape[1], device=device, dtype=torch.float32),
+        torch.arange(shape[2], device=device, dtype=torch.float32),
+        indexing="ij",
+    )
+    labels = torch.empty(shape, dtype=torch.int64, device=device)
+    for z in range(shape[0]):
+        d = (
+            ((z - pts[:, 0]) * 10.0) ** 2
+            + (yy.reshape(-1, 1) - pts[:, 1]) ** 2
+            + (xx.reshape(-1, 1) - pts[:, 2]) ** 2
+        )
+        labels[z] = ids[d.argmin(1)].reshape(shape[1:])
+    edge = torch.zeros(shape, dtype=torch.bool, device=device)
+    edge[:, 1:] |= labels[:, 1:] != labels[:, :-1]
+    edge[:, :, 1:] |= labels[:, :, 1:] != labels[:, :, :-1]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    raw = 170.0 - 110.0 * edge.float() + 15.0 * torch.randn(shape, generator=gen, device=device)
+    mask = torch.ones(shape, dtype=torch.uint8, device=device)
+    mask[: max(1, shape[0] // 8)] = 0
+    return {
+        "raw": raw.clamp(0, 255).to(torch.uint8).cpu().numpy(),
+        "labels": labels.cpu().numpy().astype(np.uint64),
+        "mask": mask.cpu().numpy(),
+    }
+
+
+def write_train_inputs(work: str, net_config: dict, shape, seed: int, device, predict_roi) -> dict:
+    """The sample as uncompressed Zarr, a setup dir holding ``net_config``,
+    a ``train.toml`` with ``samples`` and a ``predict.toml`` over
+    ``predict_roi`` (voxel offset, shape) with the latest checkpoint."""
+    from bootstrapper_torch.core.arrays import prepare_ds
+    from bootstrapper_torch.utils import tomlio
+
+    voxel_size = (40, 4, 4)
+    sample = voronoi_sample(shape, max(8, int(np.prod(shape) // 40_000)), seed, device)
+    for name, a in sample.items():
+        ds = prepare_ds(os.path.join(work, "sample.zarr", name), a.shape, (0, 0, 0), voxel_size, a.dtype)
+        ds[ds.roi] = a
+    setup = os.path.join(work, "setup", "3d_affs")
+    os.makedirs(setup, exist_ok=True)
+    with open(os.path.join(setup, "net_config.json"), "w") as f:
+        json.dump(net_config, f)
+    train_toml = os.path.join(work, "train.toml")
+    tomlio.dump(
+        {
+            "train": {
+                "setup_dir": setup, "voxel_size": list(voxel_size), "seed": seed,
+                "save_checkpoints_every": 20, "save_snapshots_every": 0,
+                "samples": [{k: os.path.join(work, "sample.zarr", k) for k in ("raw", "labels", "mask")}],
+            }
+        },
+        train_toml,
+    )
+    predict_toml = os.path.join(work, "predict.toml")
+    offset, roi_shape = predict_roi
+    tomlio.dump(
+        {
+            "predict": {
+                "vol": {
+                    "raw_dataset": os.path.join(work, "sample.zarr", "raw"),
+                    "output_container": os.path.join(work, "sample.zarr"),
+                    "roi_offset": [o * v for o, v in zip(offset, voxel_size)],
+                    "roi_shape": [s * v for s, v in zip(roi_shape, voxel_size)],
+                    "chain": [{"setup_dir": setup, "output_prefix": "predictions", "checkpoint_iteration": "latest"}],
+                }
+            }
+        },
+        predict_toml,
+    )
+    return {"train_toml": train_toml, "predict_toml": predict_toml, "setup": setup, "voxel_size": voxel_size}
+
+
+def train_conv_cases(net_config: dict) -> list:
+    """The kernel-route convs of one training forward at the net's input
+    shape, traced on the ``meta`` device, named after the tile's convs of
+    ``conv_cases`` (the same convs in the same order):
+    ``(name, input shape, crop, weight shape, bias)``."""
+    import torch
+
+    from bootstrapper_torch.models import Model
+
+    with torch.device("meta"):
+        model = Model(net_config)
+    x = torch.empty((1, *net_config["input_shape"], 1), device="meta")
+    with torch.no_grad():
+        _, cases = trace_kernel_convs(lambda: model(x))
+    tile_cases = conv_cases()
+    if [(c[2], c[3]) for c in cases] != [(t[3], t[4]) for t in tile_cases]:
+        raise AssertionError("the training forward runs other kernel convs than a tile")
+    return [(f"train_{t[0]}", *c) for t, c in zip(tile_cases, cases)]
+
+
+def check_conv_function(seed: int, device="cuda") -> list:
+    """``Conv3dFunction`` in fp32 on the card (the fp32 kernel forward, cuDNN
+    backward in full fp32) against autograd through ``conv3d_plain``: output
+    and dX, dW, db, each within FUNCTION_RTOL of the reference's largest
+    value.  Two shapes: ReLU fused, and a 1x1 residual on a cropped view."""
+    import torch
+
+    from bootstrapper_torch.models.unet import center_crop
+    from bootstrapper_torch.ops import conv3d as C
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = []
+    try:
+        for name, xs, crop, ws, relu in [
+            ("relu_300to300_k3", (1, 8, 30, 30, 300), None, (3, 3, 3, 300, 300), True),
+            ("residual_view_300to1500_k1", (1, 10, 36, 36, 300), (6, 28, 28), (1, 1, 1, 300, 1500), False),
+        ]:
+            base = C.empty_channels_last(xs, torch.float32, device)
+            base.copy_(torch.randn(xs, generator=gen, device=device))
+            x0 = base if crop is None else center_crop(base, crop)
+            w0 = torch.randn(ws, generator=gen, device=device) / math.sqrt(np.prod(ws[:4]))
+            b0 = torch.randn(ws[-1], generator=gen, device=device)
+            got_in = [t.detach().clone().requires_grad_(True) for t in (w0, b0)]
+            ref_in = [t.detach().clone().requires_grad_(True) for t in (w0, b0)]
+            xg = x0.detach().requires_grad_(True)  # the view itself, strides and all
+            xr = x0.detach().clone().requires_grad_(True)
+            before = C.COUNTS["kernel"]
+            out = C.Conv3dFunction.apply(xg, got_in[0], got_in[1], relu, None)
+            if C.COUNTS["kernel"] != before + 1:
+                raise AssertionError("Conv3dFunction did not launch the kernel")
+            ref = C.conv3d_plain(xr, ref_in[0], ref_in[1], relu=relu)
+            g = torch.randn(ref.shape, generator=gen, device=device)
+            (out * g).sum().backward()
+            (ref * g).sum().backward()
+            errs = {}
+            for key, a, r in (
+                ("out", out.detach(), ref.detach()), ("dx", xg.grad, xr.grad),
+                ("dw", got_in[0].grad, ref_in[0].grad), ("db", got_in[1].grad, ref_in[1].grad),
+            ):
+                errs[key] = float((a - r).abs().max() / r.abs().max())
+            if max(errs.values()) > FUNCTION_RTOL:
+                raise AssertionError(f"Conv3dFunction {name}: {errs} beyond {FUNCTION_RTOL}")
+            rows.append({"shape": name, "x": list(x0.shape), "w": list(ws), "relu": relu, "rel_err": errs})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return rows
+
+
+def whole_net_gradients(net_config: dict, params, batch: dict, device="cuda") -> dict:
+    """On one batch: the bf16 model's gradients (kernel route, as it trains)
+    against the fp32 model's with every conv on the library route (cuDNN,
+    TF32 off): per parameter tensor present, nonzero and within GRAD_REL_L2
+    relative L2."""
+    import torch
+
+    from bootstrapper_torch.models import Model, load_params
+    from bootstrapper_torch.models import unet as U
+    from bootstrapper_torch.ops import conv3d as C
+    from bootstrapper_torch.train.loop import loss_fn
+
+    def grads(model):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+    before = C.COUNTS["kernel"]
+    bf16 = load_params(Model(net_config), params).to(device)
+    loss16, g16 = grads(bf16)
+    kernel_launches = C.COUNTS["kernel"] - before
+    if kernel_launches == 0 and torch.device(device).type == "cuda":
+        raise AssertionError("the bf16 training forward launched no conv kernel")
+    fp32 = load_params(Model(net_config, compute_dtype=torch.float32), params).to(device)
+    real, tf32 = U.conv3d, torch.backends.cudnn.allow_tf32
+    U.conv3d = lambda x, w, b=None, relu=False, pack=None: C.conv3d_library(x, w, b, relu=relu)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        loss32, g32 = grads(fp32)
+    finally:
+        U.conv3d, torch.backends.cudnn.allow_tf32 = real, tf32
+    rel = {}
+    for n, ref in g32.items():
+        got = g16[n]
+        if got is None or not bool(got.abs().max() > 0):
+            raise AssertionError(f"{n}: no gradient on the kernel route")
+        rel[n] = float((got - ref).norm() / ref.norm())
+    worst = max(rel, key=rel.get)
+    if rel[worst] > GRAD_REL_L2:
+        raise AssertionError(f"bf16 gradients vs fp32: {worst} relative L2 {rel[worst]} > {GRAD_REL_L2}")
+    return {
+        "parameters": len(rel), "loss_bf16": loss16, "loss_fp32": loss32,
+        "kernel_launches": kernel_launches, "max_rel_l2": rel[worst], "worst": worst,
+        "median_rel_l2": float(np.median(list(rel.values()))), "bound": GRAD_REL_L2,
+    }
+
+
+def overfit(net_config: dict, params, batch: dict, steps: int, device="cuda") -> dict:
+    """``steps`` train steps on one batch: the mean loss of the last 20 must
+    lie below that of the first 20.  Then every packed weight the kernel
+    read must equal the updated parameter (no stale pack), and every
+    parameter's version must have moved with each step."""
+    import torch
+
+    from bootstrapper_torch.models import Model, load_params
+    from bootstrapper_torch.models.unet import Conv
+    from bootstrapper_torch.ops import conv3d as C
+    from bootstrapper_torch.train.loop import TrainState, make_optimizer, make_train_step
+
+    model = load_params(Model(net_config), params).to(device)
+    state = TrainState(0, model, make_optimizer(model, 0.5e-4))
+    step = make_train_step()
+    versions = {n: p._version for n, p in model.named_parameters()}
+    packs = C.COUNTS["pack"]
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _, m = step(state, batch)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    seconds = time.perf_counter() - t0
+    stale = [n for n, p in model.named_parameters() if p._version < versions[n] + steps]
+    if stale:
+        raise AssertionError(f"optimizer steps did not bump the versions of {stale[:4]}")
+    # the last step updated the weights after its forward packed them: the
+    # next call must repack, not serve what was packed before
+    checked = 0
+    for name, conv in model.named_modules():
+        if isinstance(conv, Conv):
+            for dtype, lo, hi in list(conv._packed):
+                want = conv.w.detach()[..., lo:hi, :].to(dtype)
+                if not torch.equal(C.unpack_weights(conv.packed(dtype, lo, hi)), want):
+                    raise AssertionError(f"{name}: the packed weights are stale")
+                checked += 1
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"overfit: mean loss of the first 20 steps {first}, of the last 20 {last}")
+    return {
+        "steps": steps, "first20_mean_loss": first, "last20_mean_loss": last,
+        "loss_first": losses[0], "loss_last": losses[-1], "seconds": seconds,
+        "packs_during": C.COUNTS["pack"] - packs, "packs_checked": checked,
+    }
+
+
+def top_level_zero_share(net_config: dict, params, batch: dict, device="cuda") -> float:
+    """Share of the U-Net's top-level outputs (after its last ReLU, what the
+    heads read) that are 0 on ``batch``, with ``params``."""
+    import torch
+
+    from bootstrapper_torch.models import Model, load_params
+
+    model = load_params(Model(net_config), params).to(device)
+    with torch.no_grad():
+        z = model.unet(batch["input"].to(model.compute_dtype))
+    return float((z == 0).float().mean())
+
+
+def train_round(paths: dict, iterations, device="cuda") -> dict:
+    """``run_training`` to ``iterations[0]``, again to ``iterations[1]``
+    (which resumes), then ``run_prediction`` with the latest checkpoint.
+    Launch counts zeroed before the first and read after the second."""
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.ops import conv3d_kernel_launches, launch_counts, reset_launch_counts
+    from bootstrapper_torch.workflows import run_prediction, run_training
+
+    first_n, total = iterations
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    first = run_training(paths["train_toml"], device=device, max_iterations=first_n)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = run_training(paths["train_toml"], device=device, max_iterations=total)
+    second_s = time.perf_counter() - t0
+    counts, by_conv = launch_counts(), conv3d_kernel_launches()
+    log = [json.loads(line) for line in open(os.path.join(paths["setup"], "log", "loss.jsonl"))]
+    # a second run that started afresh would log its iterations from 10 again
+    its = [r["iteration"] for r in log]
+    if its != sorted(set(its)) or its[-1] != total or first["iterations"] != first_n:
+        raise AssertionError(f"training did not resume: {first}, {second}, log {log}")
+    with np.load(second["checkpoint"]) as data:
+        if int(data["step"]) != total or int(data["opt/0000"]) != total:
+            raise AssertionError(f"checkpoint {second['checkpoint']}: step {data['step']}")
+    t0 = time.perf_counter()
+    stats = run_prediction(paths["predict_toml"], device=device)
+    predict_s = time.perf_counter() - t0
+    affs = open_ds(os.path.join(os.path.dirname(paths["train_toml"]), "sample.zarr", "predictions", "3d_affs"))
+    a = affs.to_ndarray()
+    if a.dtype != np.uint8 or a.shape[0] != 9 or a.min() == a.max():
+        raise AssertionError(f"predictions from the trained checkpoint: {a.shape} {a.dtype} {a.min()}..{a.max()}")
+    (pstats,) = stats.values()
+    return {
+        "iterations": [first_n, total], "seconds": [first_s, second_s],
+        "losses": [[r["iteration"], r["loss"]] for r in log],
+        "checkpoint": second["checkpoint"],
+        "train_launches": counts, "conv_launches": by_conv,
+        "predict_seconds": predict_s, "predict_tiles": pstats["tiles"], "predict_shape": list(a.shape),
+        "affs_mean": float(a.mean()),
+    }
+
+
+def time_train_step(net_config: dict, paths: dict, seed: int, steps: int, device="cuda") -> dict:
+    """The steady train step at the net's input shape, by parts, over
+    ``steps`` steps after three warm ones: host wait on the loader (host
+    clock), then CUDA events around the device transform, forward, backward
+    and optimizer; the wall time per step; peak memory; then one step under
+    ``torch.profiler``: device time by group of its forward and its
+    backward, and the idle share of the whole step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models import Model
+    from bootstrapper_torch.pipeline.training import TrainingPipeline
+    from bootstrapper_torch.train.loop import create_train_state, loss_fn
+    from bootstrapper_torch.train.sampler import Sample
+
+    root = os.path.join(os.path.dirname(paths["train_toml"]), "sample.zarr")
+    sample = Sample(*(open_ds(os.path.join(root, k)) for k in ("raw", "labels", "mask")))
+    pipe = TrainingPipeline(net_config, paths["voxel_size"], [sample], seed=seed, device=device)
+    state = create_train_state(Model(net_config).to(device), seed, 0.5e-4)
+    model, opt = state.model, state.optimizer
+    names = ("transform", "forward", "backward", "optimizer")
+    try:
+        for _ in range(3):
+            batch = pipe.next_batch()
+            opt.zero_grad(set_to_none=True)
+            loss_fn(model, batch).backward()
+            opt.step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(steps)]
+        host_s = np.zeros((steps, 5))  # host clock at the same five marks
+        wait = 0.0
+        t0 = time.perf_counter()
+        for ev, hs in zip(marks, host_s):
+            t = time.perf_counter()
+            host = next(pipe.loader)
+            wait += time.perf_counter() - t
+            hs[0] = time.perf_counter()
+            ev[0].record()
+            batch = pipe.transform_batch(host)
+            ev[1].record()
+            hs[1] = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(model, batch)
+            ev[2].record()
+            hs[2] = time.perf_counter()
+            loss.backward()
+            ev[3].record()
+            hs[3] = time.perf_counter()
+            opt.step()
+            ev[4].record()
+            hs[4] = time.perf_counter()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        peak = torch.cuda.max_memory_allocated()
+        parts = {
+            k: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / steps for i, k in enumerate(names)
+        }
+        # the host's time to enqueue each part (it waits for the card only
+        # in the transform's renumbering)
+        host_parts = {k: float(np.diff(host_s, axis=1)[:, i].mean() * 1e3) for i, k in enumerate(names)}
+        # one step under the profiler, its forward and backward apart
+        batch = pipe.next_batch()
+        torch.cuda.synchronize()
+        opt.zero_grad(set_to_none=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as fwd_prof:
+            loss = loss_fn(model, batch)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as bwd_prof:
+            loss.backward()
+            torch.cuda.synchronize()
+        opt.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as step_prof:
+            t = time.perf_counter()
+            batch = pipe.next_batch()
+            opt.zero_grad(set_to_none=True)
+            loss_fn(model, batch).backward()
+            opt.step()
+            torch.cuda.synchronize()
+            step_wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        pipe.stop()
+    fwd_ms, fwd_groups, _ = device_groups(fwd_prof)
+    bwd_ms, bwd_groups, bwd_top = device_groups(bwd_prof)
+    step_ms, _, step_top = device_groups(step_prof)
+    host_top = sorted(
+        ((e.key, e.self_cpu_time_total / 1e3) for e in step_prof.key_averages()), key=lambda kv: -kv[1]
+    )[:10]
+    if not (fwd_ms and bwd_ms and step_ms):
+        raise RuntimeError("torch.profiler recorded no device event in a train step")
+    fl = tile_flops(net_config, net_config["input_shape"])
+    forward = fl["kernel"] + fl["library"]
+    # backward, counted: dW of every conv, dX of every conv but those that
+    # read the net's input (conv products only)
+    backward = forward + (forward - fl["on_input"])
+    return {
+        "input_tile": list(net_config["input_shape"]), "batch": pipe.batch_size, "steps": steps,
+        "wall_ms_per_iteration": wall_ms, "samples_per_s": 1e3 / wall_ms * pipe.batch_size,
+        "loader_wait_ms": wait * 1e3 / steps, "device_ms_by_part": parts, "host_ms_by_part": host_parts,
+        "host_top_self_cpu_ms": [[k[:100], ms] for k, ms in host_top],
+        "forward_groups_ms": fwd_groups, "backward_groups_ms": bwd_groups,
+        "backward_top_kernels_ms": bwd_top, "step_top_kernels_ms": step_top,
+        "profiled_step_wall_ms": step_wall_ms, "profiled_step_device_ms": step_ms,
+        "idle_share": 1 - step_ms / step_wall_ms, "peak_memory_gb": peak / 1e9,
+        "flops_forward": forward, "flops_backward": backward,
+        "flops_forward_kernel_route": fl["kernel"],
+        "tflops_per_s": (forward + backward) / wall_ms / 1e9,
+        "bf16_roofline_share": (forward + backward) / wall_ms / 1e9 / (PEAK_BF16 / 1e12),
+        "bound_ms": (forward + backward) / PEAK_BF16 * 1e3,
+    }
+
+
+def train_phase(seed: int, net_config: dict, shape, iterations, overfit_steps: int, timed_steps: int,
+                predict_roi, device="cuda") -> tuple:
+    """The training slice on the card: (a) a synthetic sample, (b) K1 at the
+    training forward's shapes, (c) ``Conv3dFunction`` against plain in
+    fp32, (d) whole-net gradients against fp32, (e) overfit one batch, (f)
+    train, resume and predict through the entry points, (g) the steady
+    step by parts.  Returns the phase's line and K1's rows, their launches
+    those of (f)."""
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models import init_params_numpy, load_checkpoint
+    from bootstrapper_torch.pipeline.training import TrainingPipeline
+    from bootstrapper_torch.train.sampler import Sample
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_train_") as work:
+        t0 = time.perf_counter()
+        paths = write_train_inputs(work, net_config, shape, seed, device, predict_roi)
+        out["sample"] = {"shape": list(shape), "seconds": time.perf_counter() - t0}
+        cases = train_conv_cases(net_config)
+        rows = check_conv(seed, cases, fp32=False) if device == "cuda" else []
+        out["function_fp32"] = check_conv_function(seed, device) if device == "cuda" else []
+        root = os.path.join(work, "sample.zarr")
+        sample = Sample(*(open_ds(os.path.join(root, k)) for k in ("raw", "labels", "mask")))
+        pipe = TrainingPipeline(net_config, paths["voxel_size"], [sample], seed=seed, device=device, num_threads=1)
+        try:
+            batch = pipe.next_batch()
+        finally:
+            pipe.stop()
+        params = init_params_numpy(net_config, seed)
+        out["gradients"] = whole_net_gradients(net_config, params, batch, device)
+        out["overfit"] = overfit(net_config, params, batch, overfit_steps, device)
+        out["round"] = train_round(paths, iterations, device)
+        trained = load_checkpoint(out["round"]["checkpoint"])
+        out["round"]["checkpoint"] = os.path.basename(out["round"]["checkpoint"])
+        out["top_level_zero_share"] = {
+            "init": top_level_zero_share(net_config, params, batch, device),
+            "trained": top_level_zero_share(net_config, trained, batch, device),
+        }
+        del batch
+        by_conv = out["round"].pop("conv_launches")
+        for row in rows:
+            row["launches"] = by_conv.pop((tuple(row["x"]), tuple(row["w"])), 0)
+        want = iterations[1]
+        off_plan = by_conv or [r["shape"] for r in rows if r["launches"] != want]
+        if device == "cuda" and (off_plan or out["round"]["train_launches"]["conv3d.kernel"] != want * len(rows)):
+            raise AssertionError(
+                f"training: conv kernel launches {out['round']['train_launches']} "
+                f"(not one per iteration at {off_plan})"
+            )
+        if device == "cuda":
+            out["step"] = time_train_step(net_config, paths, seed, timed_steps, device)
+    return out, rows
 
 
 def main(argv=None) -> int:
@@ -1087,6 +1601,15 @@ def main(argv=None) -> int:
 
     emit({"phase": "reference", **check_reference(net_config, params, affs, args.seed)})
     emit({"phase": "tile_breakdown", **tile_breakdown(net_config, params, args.seed)})
+    train, train_rows = train_phase(
+        args.seed, net_config, TRAIN_VOLUME, TRAIN_ITERATIONS, OVERFIT_STEPS, TIMED_STEPS, TRAIN_PREDICT_ROI
+    )
+    emit(
+        {
+            "phase": "train", "nvidia_smi": smi, **train,
+            "conv_launches": {r["shape"]: r["launches"] for r in train_rows},
+        }
+    )
     # the stream against the tiled path at its own xy tile, and the share of
     # voxels that differ from the zoo-tiled path, seams included
     vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
@@ -1098,8 +1621,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"streamed affinities differ from the tiled ones: {vs_tiled}, {vs_zoo}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "counts_now": launch_counts()})
 
-    conv_rows += stream_rows
-    conv_launches += stream_conv
+    conv_rows += stream_rows + train_rows
+    conv_launches += stream_conv + train["round"]["train_launches"]["conv3d.kernel"]
     seed_launches += stream_seed
     top_conv = max(conv_rows, key=lambda r: r["ms"] * r["launches"])
     top_seed = seed_rows[0]

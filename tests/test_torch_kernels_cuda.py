@@ -99,6 +99,46 @@ def test_conv3d_kernel_matches_plain(cuda, x_shape, w_shape, dtype, crop, relu, 
 
 
 @pytest.mark.cuda
+def test_conv3d_cuda_refuses_where_a_gradient_is_needed(cuda):
+    """``conv3d_cuda`` gives no gradient: with grad enabled and an input that
+    requires grad it raises; ``conv3d`` routes such calls through
+    ``Conv3dFunction``, whose gradients reach every input."""
+    x, w, b = _conv_inputs(cuda, (1, 6, 12, 12, 300), (3, 3, 3, 300, 300), BF16, None, "lines")
+    w = w.float().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        C.conv3d_cuda(x, w, b)
+    with torch.no_grad():
+        C.conv3d_cuda(x, w, b)
+    xg = x.detach().requires_grad_(True)
+    y = C.conv3d(xg, w, b.float().requires_grad_(True), relu=True)
+    y.float().sum().backward()
+    assert xg.grad is not None and float(w.grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu,crop", [(True, None), (False, (4, 8, 8))])
+def test_conv3d_function_gradients_match_plain_fp32(cuda, relu, crop):
+    """fp32 with TF32 off: the kernel forward and cuDNN's backward against
+    autograd through the plain version, within 1e-4 of each reference's
+    largest value (fp32 sums in other orders)."""
+    x, w, b = _conv_inputs(cuda, (1, 7, 12, 12, 300), (3, 3, 3, 300, 150), F32, crop, "lines")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = [t.detach().requires_grad_(True) for t in (x, w, b)]
+        ref = [t.detach().clone().requires_grad_(True) for t in (x, w, b)]
+        y = C.conv3d(*got, relu=relu)
+        r = C.conv3d_plain(*ref, relu=relu)
+        g = torch.randn(r.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+        (y * g).sum().backward()
+        (r * g).sum().backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for a, want in [(y.detach(), r.detach())] + [(t.grad, u.grad) for t, u in zip(got, ref)]:
+        assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_conv3d_kernel_chains_on_16_byte_voxels(cuda, dtype):
     """A kernel output (300 channels: 600-byte voxels in bf16) is laid
