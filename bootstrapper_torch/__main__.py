@@ -2,8 +2,10 @@
 kernels will be built and run in, as one JSON line.
 
 Reports ``torch.version.cuda``, the device's name and compute capability
-(the kernels target (9, 0)), whether ``triton`` imports, and the paths of
-``nvcc``, ``ninja`` and ``g++``.  Exits 1 when there is no CUDA device or
+(the kernels target (9, 0)), whether ``triton`` and ``networkx`` import
+(skeleton metrics and threshold sweeps need networkx; VOI, prediction
+errors and the filter do not), and the paths of ``nvcc``, ``ninja`` and
+``g++``.  Exits 1 when there is no CUDA device or
 no ``nvcc``, since the kernels can then neither build nor run.
 """
 
@@ -20,6 +22,14 @@ import torch
 from .ops._build import nvcc_path
 
 
+def _imports(name: str) -> bool:
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
 def doctor() -> dict:
     info = {
         "python": sys.version.split()[0],
@@ -28,6 +38,7 @@ def doctor() -> dict:
         "cuda_available": torch.cuda.is_available(),
         "device_count": torch.cuda.device_count() if torch.cuda.is_available() else 0,
         "triton": importlib.util.find_spec("triton") is not None,
+        "networkx": _imports("networkx"),
         "nvcc": nvcc_path(),
         "ninja": shutil.which("ninja"),
         "gxx": shutil.which("g++"),

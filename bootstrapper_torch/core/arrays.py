@@ -206,6 +206,11 @@ class Array:
         return key
 
     def __getitem__(self, key) -> np.ndarray:
+        if isinstance(key, Coordinate):
+            # one world point -> its value (all channels)
+            idx = [(k - o) // v for k, o, v in zip(key, self.offset, self.voxel_size)]
+            sl = (slice(None),) * len(self.channel_shape) + tuple(slice(i, i + 1) for i in idx)
+            return self.store.read(sl)[(Ellipsis,) + (0,) * len(idx)]
         return self.store.read(self._key(key))
 
     def __setitem__(self, key, value):

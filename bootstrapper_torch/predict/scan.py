@@ -70,19 +70,29 @@ def shrink_shape_increase(model: Model, volume_vox_shape, inc=None) -> list:
     return inc
 
 
-def tile_rois(total: Roi, tile_size: Coordinate) -> list:
+def tile_rois(total: Roi, tile_size: Coordinate, with_fresh: bool = False) -> list:
     """Cover ``total`` with full-sized tiles; edge tiles shift inward, so
-    they overlap their neighbour (z-major order)."""
-    starts_per_dim = []
+    they overlap their neighbour (z-major order).
+
+    ``with_fresh=True`` returns ``(tile, fresh)`` pairs, where ``fresh``
+    is the part of the tile that no earlier tile covers: statistics summed
+    over whole tiles would count the overlap twice."""
+    per_dim = []
     for b, e, t in zip(total.begin, total.end, tile_size):
         starts = list(range(b, e - t + 1, t)) or [b]
         if starts[-1] + t < e:
             starts.append(e - t)
-        starts_per_dim.append(starts)
-    return [
-        Roi(Coordinate(start), tile_size)
-        for start in itertools.product(*starts_per_dim)
-    ]
+        prev_ends = [starts[0]] + [s + t for s in starts[:-1]]
+        per_dim.append([(s, max(s, p), s + t) for s, p in zip(starts, prev_ends)])
+    out = []
+    for combo in itertools.product(*per_dim):
+        tile = Roi(Coordinate(c[0] for c in combo), tile_size)
+        if with_fresh:
+            fresh = Roi(Coordinate(c[1] for c in combo), Coordinate(c[2] - c[1] for c in combo))
+            out.append((tile, fresh))
+        else:
+            out.append(tile)
+    return out
 
 
 class Predictor:

@@ -60,7 +60,28 @@ Phases, each printing one JSON line:
     at each of the eleven shapes), then ``run_prediction`` with the
     checkpoint it wrote; last, the steady step by parts (loader wait, then
     CUDA events and host clock around transform, forward, backward and
-    optimizer), its device groups, idle share, peak memory and TFLOP/s.
+    optimizer), its device groups, idle share, peak memory and TFLOP/s;
+(r) one whole round (``round``), as a user runs it from the configs
+    ``make_round_configs`` writes, on the training slice's Voronoi sample
+    with its labels as GT: ``run_training`` (ROUND_ITERATIONS[0]),
+    ``run_prediction`` (streamed), ``run_segmentation`` (ws),
+    ``run_evaluation`` by VOI and again by prediction errors (the config
+    written without GT, the error map computed on the card), ``run_filter``
+    (the next round's labels and mask), and a ``round_1`` line.  A net
+    this young (from this init its top level dies in most runs) segments
+    little or nothing, so the round then runs segment, evaluate and filter
+    once more through the same configs on the GT's own affinities written
+    in place of the prediction (what a perfect net predicts), and trains
+    round 2 from round 1's ``next_volumes.toml`` (ROUND_ITERATIONS[1]) on
+    the pseudo-GT that pass leaves.  Launch counts are zeroed before each
+    entry point and read after: K1 once per iteration at each training
+    shape and on every predict step (its stream shapes held against the
+    plain version), K2 in each segment (its shape held against plain).
+    The error maps of every segmentation and of the GT labels are held
+    against the CPU route (within ERR_ATOL, masks equal except on ties,
+    which are counted), each filter's output against the host filter
+    recomputed; seconds per stage, segments before and after each filter,
+    VOI, error ratios and the pseudo-GT's coverage.
 
 Then the card's name and power limit as nvidia-smi reports them, the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -121,6 +142,16 @@ TRAIN_ITERATIONS = (60, 80)
 OVERFIT_STEPS = 200
 TIMED_STEPS = 10
 TRAIN_PREDICT_ROI = ((16, 96, 96), (16, 320, 320))
+
+
+# the round (``round``): round 1's and round 2's training iterations, on
+# TRAIN_VOLUME's Voronoi sample (from this init the net's top level died
+# within 100 iterations in most runs, in the JAX package too at a medium
+# width); the card's error map against the CPU route's, and the distance
+# from a threshold within which the two may put a voxel on either side (a
+# tie)
+ROUND_ITERATIONS = (80, 10)
+ERR_ATOL = 1e-6
 
 
 # the streamed main path's volume: deeper than 96 slices and, at the plan's
@@ -405,23 +436,26 @@ def check_conv_fp32(gen) -> dict:
     return row
 
 
-def check_seeds(seed: int) -> list:
+SEED_CASES = [
+    ("stack_8x640x640_size10", (8, 640, 640), 10),
+    ("stack_8x640x640_size7", (8, 640, 640), 7),
+    ("section_640x640_size10", (1, 640, 640), 10),
+    # a CREMI-sized stack: large enough that the time is the kernel's
+    # and not a launch's
+    ("stack_125x1250x1250_size10", (125, 1250, 1250), 10),
+    # a window past the register body's 16: the general body
+    ("stack_8x640x640_size33", (8, 640, 640), 33),
+]
+
+
+def check_seeds(seed: int, cases=SEED_CASES) -> list:
     import torch
 
     from bootstrapper_torch.ops import seeds as S
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for name, shape, size in [
-        ("stack_8x640x640_size10", (8, 640, 640), 10),
-        ("stack_8x640x640_size7", (8, 640, 640), 7),
-        ("section_640x640_size10", (1, 640, 640), 10),
-        # a CREMI-sized stack: large enough that the time is the kernel's
-        # and not a launch's
-        ("stack_125x1250x1250_size10", (125, 1250, 1250), 10),
-        # a window past the register body's 16: the general body
-        ("stack_8x640x640_size33", (8, 640, 640), 33),
-    ]:
+    for name, shape, size in cases:
         # normal, so the border holds negative values (outside counts as
         # -inf, not 0)
         dist = torch.randn(shape, generator=gen, device="cuda")
@@ -1097,6 +1131,15 @@ def train_conv_cases(net_config: dict) -> list:
     return [(f"train_{t[0]}", *c) for t, c in zip(tile_cases, cases)]
 
 
+def train_conv_keys(net_config: dict) -> set:
+    """``(input view shape, weight shape)`` of each kernel conv of a
+    training forward, as the launch counts key them."""
+    return {
+        ((xs[0], *crop, xs[-1]) if crop else tuple(xs), tuple(ws))
+        for _, xs, crop, ws, _ in train_conv_cases(net_config)
+    }
+
+
 def check_conv_function(seed: int, device="cuda") -> list:
     """``Conv3dFunction`` in fp32 on the card (the fp32 kernel forward, cuDNN
     backward in full fp32) against autograd through ``conv3d_plain``: output
@@ -1466,6 +1509,356 @@ def train_phase(seed: int, net_config: dict, shape, iterations, overfit_steps: i
     return out, rows
 
 
+# -- (r) one whole round ---------------------------------------------------
+
+
+def stage(log: dict, name: str, fn):
+    """``fn()`` with the launch counts zeroed just before it and read just
+    after; its seconds and counts go to ``log[name]``."""
+    from bootstrapper_torch.ops import conv3d_kernel_launches, launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    log[name] = {
+        "seconds": time.perf_counter() - t0,
+        "launches": launch_counts(),
+        "conv_launches": conv3d_kernel_launches(),
+    }
+    return out
+
+
+def aff_errors_by_parts(seg, pred, neighborhood, out_container, device) -> dict:
+    """``compute_aff_errors`` on ``device`` once more, with the upload and
+    the device's work of every block synchronised and timed on the host's
+    clock; the rest of the wall time is the host's (reads, renumbering,
+    downloads, writes)."""
+    import torch
+
+    from bootstrapper_torch.eval import errors as E
+
+    parts = {"upload": 0.0, "device": 0.0}
+    real = E.upload_block, E.block_error
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t0
+            return out
+
+        return run
+
+    E.upload_block, E.block_error = timed("upload", real[0]), timed("device", real[1])
+    try:
+        t0 = time.perf_counter()
+        E.compute_aff_errors(seg, pred, neighborhood, out_container, device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        E.upload_block, E.block_error = real
+    return {
+        "wall_s": wall, "upload_s": parts["upload"], "device_s": parts["device"],
+        "host_rest_s": wall - parts["upload"] - parts["device"],
+    }
+
+
+def check_errors(entry: dict, seg, pred, neighborhood, thresholds, out_container) -> dict:
+    """The card's error map and mask (``entry``, from ``run_evaluation``)
+    against the CPU route's on the same Zarrs: the map within ERR_ATOL,
+    the masks equal except on ties, the counts equal up to the ties whose
+    mask differs."""
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.eval import compute_aff_errors
+
+    t0 = time.perf_counter()
+    cpu = compute_aff_errors(seg, pred, neighborhood, out_container, thresholds=thresholds, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    got, want = open_ds(entry["error_map"]).to_ndarray(), open_ds(cpu["error_map"]).to_ndarray()
+    err = float(np.abs(got - want).max())
+    tie = np.zeros(want.shape, dtype=bool)
+    for t in thresholds:
+        tie |= np.abs(want - t) <= ERR_ATOL
+    differs = open_ds(entry["error_mask"]).to_ndarray() != open_ds(cpu["error_mask"]).to_ndarray()
+    out = {
+        "max_abs_err": err, "atol": ERR_ATOL, "ties": int(tie.sum()),
+        "tie_voxels_differing": int(differs[tie].sum()), "voxels_differing_elsewhere": int(differs[~tie].sum()),
+        "nonzero_ratio": entry["nonzero_ratio"], "cpu_nonzero_ratio": cpu["nonzero_ratio"], "cpu_seconds": cpu_s,
+    }
+    if (
+        err > ERR_ATOL
+        or out["voxels_differing_elsewhere"]
+        or abs(entry["nonzero_voxels"] - cpu["nonzero_voxels"]) > out["tie_voxels_differing"]
+        or entry["total_voxels"] != cpu["total_voxels"]
+    ):
+        raise AssertionError(f"prediction errors on the card against the CPU route: {out}")
+    return out
+
+
+def write_gt_affinities(labels, pred, neighborhood, device) -> None:
+    """Overwrite the prediction ``pred`` (uint8, channels first) with the
+    affinities of the GT ``labels`` over its ROI, as a perfect net would
+    predict them: ``seg_to_affs`` on ``device`` of the labels read grown by
+    the neighbourhood's extent (renumbered on the host, exactly), 255 for
+    an affinity."""
+    import torch
+
+    from bootstrapper_torch.core.geometry import Coordinate
+    from bootstrapper_torch.ops.affinities import seg_to_affs
+    from bootstrapper_torch.train.sampler import renumber
+
+    if pred.shape[0] != len(neighborhood):
+        raise AssertionError(f"{pred.shape[0]} prediction channels for {len(neighborhood)} offsets")
+    ext = Coordinate(np.abs(np.asarray(neighborhood)).max(0).tolist())
+    ids = renumber(labels.to_ndarray(pred.roi.grow(ext * pred.voxel_size, ext * pred.voxel_size)))
+    affs = seg_to_affs(torch.from_numpy(ids.astype(np.int64)).to(device), neighborhood, torch.uint8) * 255
+    crop = tuple(slice(e, n - e) for e, n in zip(ext, ids.shape))
+    pred[pred.roi] = affs[(slice(None), *crop)].cpu().numpy()
+
+
+def check_filter(result: dict, best: str, err_mask, fcfg: dict) -> dict:
+    """``run_filter``'s output against the host filter recomputed: it
+    filtered the evaluation's best segmentation, every voxel is the
+    source's or 0, the removed ids are ``compute_ids_to_remove``'s, the
+    mask is the kept labels with the error mask applied.  Object counts
+    and the pseudo-GT's coverage."""
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.post.filter import compute_ids_to_remove
+
+    if result["source_segmentation"] != best:
+        raise AssertionError(f"filtered {result['source_segmentation']}, the evaluation's best is {best}")
+    src = open_ds(best).to_ndarray()
+    labels = open_ds(result["labels"]).to_ndarray()
+    mask = open_ds(result["mask"]).to_ndarray()
+    removed = compute_ids_to_remove(
+        src, fcfg["dust_filter"], fcfg["remove_outliers"], fcfg["remove_z_fragments"], fcfg["overlap_filter"]
+    )
+    want_mask = labels > 0
+    if err_mask is not None:
+        want_mask &= open_ds(err_mask).to_ndarray() == 0
+    if (
+        result["removed_ids"] != len(removed)
+        or not np.array_equal(labels, np.where(np.isin(src, removed), 0, src))
+        or not np.array_equal(mask, want_mask.astype(np.uint8))
+    ):
+        raise AssertionError(f"filter output differs from the host filter: {result}")
+    return {
+        "segments_before_filter": int(len(np.unique(src[src != 0]))),
+        "segments_after_filter": int(len(np.unique(labels[labels != 0]))),
+        "removed_ids": result["removed_ids"],
+        "pseudo_gt_mask_coverage": float(mask.mean()),
+    }
+
+
+def round_zero_share(net_config: dict, volume: dict, checkpoint: str, seed: int, device) -> dict:
+    """``top_level_zero_share`` of the net at init and with ``checkpoint``,
+    on one training batch of ``volume``."""
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models import init_params_numpy, load_checkpoint
+    from bootstrapper_torch.pipeline.training import TrainingPipeline
+    from bootstrapper_torch.train.sampler import Sample
+
+    sample = Sample(*(open_ds(volume[k]) for k in ("raw_dataset", "labels_dataset", "labels_mask_dataset")))
+    pipe = TrainingPipeline(net_config, volume["voxel_size"], [sample], seed=seed, device=device, num_threads=1)
+    try:
+        batch = pipe.next_batch()
+    finally:
+        pipe.stop()
+    return {
+        "init": top_level_zero_share(net_config, init_params_numpy(net_config, 0), batch, device),
+        "trained": top_level_zero_share(net_config, load_checkpoint(checkpoint), batch, device),
+    }
+
+
+def round_phase(seed: int, net_config: dict, shape, iterations, train_shapes=None, device="cuda") -> tuple:
+    """One whole round through the entry points, as a user runs it from
+    the configs ``make_round_configs`` writes: round 1 on the Voronoi
+    sample of ``shape`` with its labels as GT (train ``iterations[0]``,
+    predict, segment in ws mode, evaluate by VOI, evaluate again by
+    prediction errors with the config written without GT, filter); then
+    segment, evaluate and filter again from the same configs on the GT's
+    affinities written over the prediction (``gt_affs``: what a perfect net
+    would hand on, since a net this young segments little or nothing);
+    then round 2 from round 1's ``next_volumes.toml`` (train
+    ``iterations[1]`` on the pseudo-GT that pass left).  Launch counts are
+    zeroed before each entry point and read after it.  Checks: K1 once per
+    iteration at each of ``train_shapes`` and on every predict step at the
+    stream's shapes (held against the plain version here), K2 in each
+    segment; the error maps against the CPU route; each filter's output
+    against the host filter.  Returns the phase's line, K1's rows at the
+    predict shapes and K2's at the segment's."""
+    from bootstrapper_torch import configs
+    from bootstrapper_torch.core.arrays import open_ds, prepare_ds
+    from bootstrapper_torch.eval import compute_aff_errors
+    from bootstrapper_torch.utils import tomlio
+    from bootstrapper_torch.workflows import (
+        run_evaluation, run_filter, run_prediction, run_segmentation, run_training,
+    )
+    from bootstrapper_torch.workflows.filter import get_best_seg_from_eval
+
+    first_n, second_n = iterations
+    stages: dict = {}
+    out = {"volume": list(shape), "iterations": list(iterations)}
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_round_") as work:
+        t0 = time.perf_counter()
+        container, voxel_size = os.path.join(work, "vol.zarr"), (40, 4, 4)
+        sample = voronoi_sample(shape, max(8, int(np.prod(shape) // 40_000)), seed, device)
+        for name, a in sample.items():
+            ds = prepare_ds(os.path.join(container, name), a.shape, (0, 0, 0), voxel_size, a.dtype)
+            ds[ds.roi] = a
+        del sample
+        volumes = {
+            "vol": {
+                "raw_dataset": f"{container}/raw", "labels_dataset": f"{container}/labels",
+                "labels_mask_dataset": f"{container}/mask", "voxel_size": list(voxel_size),
+                "output_container": container,
+            }
+        }
+
+        def make_round(name, vols, n, **kw):
+            paths = configs.make_round_configs(
+                os.path.join(work, name), vols, ["3d_affs"], max_iterations=n, **kw
+            )
+            # the zoo's net config, as written; a narrower one in a rehearsal
+            with open(os.path.join(work, name, "setups", "3d_affs", "net_config.json"), "w") as f:
+                json.dump(net_config, f)
+            return paths
+
+        r1 = make_round("round_1", volumes, first_n, gt_labels=f"{container}/labels")
+        # a snapshot runs one forward more
+        snapshot_every = tomlio.load(r1["train_3d_affs"])["train"]["save_snapshots_every"] or 10**9
+        # the same round written without GT: its evaluation scores by
+        # prediction errors against round 1's affinities
+        nogt = make_round("nogt", volumes, first_n)["evaluate"]
+        out["prepare_seconds"] = time.perf_counter() - t0
+
+        train1 = stage(stages, "train", lambda: run_training(r1["train_3d_affs"], device=device))
+        (pstats,) = stage(stages, "predict", lambda: run_prediction(r1["predict"], device=device)).values()
+
+        def segment_evaluate_filter(suffix, errors=None):
+            """segment, evaluate by VOI (and, given ``errors``, by prediction
+            errors into it) and filter from round 1's configs; the filter
+            held against the host filter."""
+            segs = stage(stages, f"segment{suffix}", lambda: run_segmentation(r1["segment"], device=device))["vol"]
+            voi = stage(stages, f"evaluate{suffix or '_gt'}", lambda: run_evaluation(r1["evaluate"], device=device))["vol"]
+            if errors is not None:
+                errors.update(stage(
+                    stages, "evaluate_pred",
+                    lambda: run_evaluation(nogt, out_result=os.path.join(work, "nogt_results.json"), device=device),
+                )["vol"])
+            filtered = stage(stages, f"filter{suffix}", lambda: run_filter(r1["filter"]))["vol"]
+            best, err_mask = get_best_seg_from_eval(os.path.join(container, "eval", "vol_results.json"))
+            return best, {
+                "segments_per_threshold": {
+                    t: int(len(np.unique(open_ds(p).to_ndarray())) - 1) for t, p in segs.items()
+                },
+                "best_segmentation": os.path.basename(best),
+                "voi": {os.path.basename(p): e["voi"] for p, e in voi.items()},
+                **check_filter(filtered, best, err_mask, tomlio.load(r1["filter"])["filter"]["vol"]),
+            }
+
+        errors: dict = {}
+        best, quality = segment_evaluate_filter("", errors)
+        # prediction errors: the card against the CPU route, every segmentation
+        ev = tomlio.load(nogt)["evaluate"]["vol"]["pred"]
+        pred = open_ds(ev["pred_dataset"])
+        nbhd, thresholds = ev["params"]["aff_neighborhood"], tuple(ev["thresholds"])
+        out["errors_vs_cpu"] = {
+            os.path.basename(path): check_errors(
+                entry["pred_errors"], open_ds(path), pred, nbhd, thresholds,
+                os.path.join(work, "cpu_errors", os.path.basename(path)),
+            )
+            for path, entry in errors.items()
+        }
+        # and on the GT labels (ids past 2^32), whatever round 1 segmented
+        gt_ds = open_ds(f"{container}/labels")
+        out["errors_vs_cpu"]["gt_labels"] = check_errors(
+            compute_aff_errors(gt_ds, pred, nbhd, os.path.join(work, "gt_errors"), thresholds=thresholds, device=device),
+            gt_ds, pred, nbhd, thresholds, os.path.join(work, "cpu_errors", "gt_labels"),
+        )
+        if device == "cuda":
+            out["errors_by_parts"] = aff_errors_by_parts(
+                open_ds(best), pred, nbhd, os.path.join(work, "timed_errors"), device
+            )
+        gt = gt_ds.to_ndarray()
+        setup1 = os.path.join(work, "round_1", "setups", "3d_affs")
+        log = [json.loads(line) for line in open(os.path.join(setup1, "log", "loss.jsonl"))]
+        out.update(
+            {
+                "losses": {"round_1": train1["final_loss"]},
+                "round_1_loss_log": [[r["iteration"], r["loss"]] for r in log if r["iteration"] % 100 == 0],
+                "top_level_zero_share": round_zero_share(
+                    net_config, volumes["vol"], train1["checkpoint"], seed, device
+                ),
+                "predict": {k: pstats[k] for k in pstats if k != "plan"},
+                **quality,
+                "error_ratio": {os.path.basename(p): e["pred_errors"]["nonzero_ratio"] for p, e in errors.items()},
+                "gt_segments": int(len(np.unique(gt[gt != 0]))),
+            }
+        )
+        del gt
+        emit({"phase": "round_1", **out, "stage_seconds": {k: v["seconds"] for k, v in stages.items()}})
+
+        # the same stages on a perfect prediction, so that round 2 trains on
+        # a pseudo-GT whatever the net learnt
+        write_gt_affinities(gt_ds, pred, nbhd, device)
+        out["gt_affs"] = segment_evaluate_filter("_gt_affs")[1]
+
+        next_volumes = tomlio.load(os.path.join(work, "round_1", "next_volumes.toml"))["volumes"]
+        r2 = make_round("round_2", next_volumes, second_n)
+        r2_sample = tomlio.load(r2["train_3d_affs"])["train"]["samples"][0]
+        if "pseudo_gt" not in r2_sample["labels"] or "pseudo_gt" not in r2_sample["mask"]:
+            raise AssertionError(f"round 2 does not train on the pseudo-GT: {r2_sample}")
+        train2 = stage(stages, "train_round_2", lambda: run_training(r2["train_3d_affs"], device=device))
+        out["losses"]["round_2"] = train2["final_loss"]
+        for res, n in ((train1, first_n), (train2, second_n)):
+            if res["iterations"] != n or not res["checkpoint"].endswith(f"model_checkpoint_{n}"):
+                raise AssertionError(f"training: {res}")
+        out["stage_seconds"] = {k: v["seconds"] for k, v in stages.items()}
+        out["launches"] = {k: v["launches"] for k, v in stages.items()}
+    if device != "cuda":
+        return out, [], []
+
+    # K1: once per iteration at each training shape; on every predict step
+    # at the warm or steady step's shapes, held here against plain
+    n_train = len(train_shapes)
+    for name, n in (("train", first_n), ("train_round_2", second_n)):
+        n += n // snapshot_every
+        by_conv = stages[name]["conv_launches"]
+        if set(by_conv) != train_shapes or set(by_conv.values()) != {n}:
+            raise AssertionError(f"round {name}: conv kernel launches {by_conv}, want {n} at each of {n_train}")
+    if "steps_per_column" not in pstats:
+        raise AssertionError(f"the round's prediction was not streamed: {pstats}")
+    step_tile = [pstats["step_z"], *pstats["input_tile"][1:]]
+    rows = check_conv(seed, stream_conv_cases(net_config, step_tile, pstats["warm_step_z"]), fp32=False)
+    columns, steps = pstats["columns"], pstats["steps_per_column"]
+    by_conv = dict(stages["predict"]["conv_launches"])
+    for row in rows:
+        row["shape"] = f"round_{row['shape']}"
+        row["launches"] = by_conv.pop((tuple(row["x"]), tuple(row["w"])), 0)
+    off_plan = by_conv or [
+        r["shape"] for r in rows
+        if r["launches"] != (columns if r["shape"].startswith("round_warm_") else columns * (steps - 1))
+    ]
+    if off_plan or stages["predict"]["launches"]["conv3d.kernel"] != n_train * columns * steps:
+        raise AssertionError(f"round predict: conv kernel launches off plan at {off_plan}")
+    seed_launches = {k: stages[k]["launches"]["seed_maxima.kernel"] for k in ("segment", "segment_gt_affs")}
+    if min(seed_launches.values()) < 1:
+        raise AssertionError(f"round segment: the seed kernel did not run in each: {seed_launches}")
+    seed_rows = check_seeds(seed, [(f"round_stack_{'x'.join(map(str, shape))}_size10", tuple(shape), 10)])
+    seed_rows[0]["launches"] = sum(seed_launches.values())
+    # what the stages counted, by stage (and for training by shape)
+    out["conv_launches"] = {
+        name: sum(stages[name]["conv_launches"].values()) for name in ("train", "predict", "train_round_2")
+    }
+    out["train_conv_launches"] = {
+        key: stages["train"]["conv_launches"][key] + stages["train_round_2"]["conv_launches"][key]
+        for key in train_shapes
+    }
+    out["seed_launches"] = seed_launches
+    return out, rows, seed_rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1490,7 +1883,6 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi()
     emit({"phase": "doctor", **doctor(), "nvidia_smi": smi})
-
     t0 = time.perf_counter()
     _build.build_all()
     kernels_s = time.perf_counter() - t0
@@ -1610,6 +2002,19 @@ def main(argv=None) -> int:
             "conv_launches": {r["shape"]: r["launches"] for r in train_rows},
         }
     )
+    # one whole round through the entry points, round 2 on round 1's pseudo-GT
+    round_line, round_rows, round_seed_rows = round_phase(
+        args.seed, net_config, TRAIN_VOLUME, ROUND_ITERATIONS, train_conv_keys(net_config)
+    )
+    by_train = round_line.pop("train_conv_launches")
+    emit(
+        {
+            "phase": "round", "nvidia_smi": smi, **round_line,
+            "conv_launches_by_shape": {r["shape"]: r["launches"] for r in round_rows},
+        }
+    )
+    for row in train_rows:  # the round trains at the same eleven shapes
+        row["launches"] += by_train[(tuple(row["x"]), tuple(row["w"]))]
     # the stream against the tiled path at its own xy tile, and the share of
     # voxels that differ from the zoo-tiled path, seams included
     vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
@@ -1621,9 +2026,13 @@ def main(argv=None) -> int:
         raise AssertionError(f"streamed affinities differ from the tiled ones: {vs_tiled}, {vs_zoo}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "counts_now": launch_counts()})
 
-    conv_rows += stream_rows + train_rows
-    conv_launches += stream_conv + train["round"]["train_launches"]["conv3d.kernel"]
-    seed_launches += stream_seed
+    conv_rows += stream_rows + train_rows + round_rows
+    conv_launches += (
+        stream_conv + train["round"]["train_launches"]["conv3d.kernel"]
+        + sum(round_line["conv_launches"].values())
+    )
+    seed_launches += stream_seed + sum(round_line["seed_launches"].values())
+    seed_rows += round_seed_rows
     top_conv = max(conv_rows, key=lambda r: r["ms"] * r["launches"])
     top_seed = seed_rows[0]
     kernels = [

@@ -274,3 +274,38 @@ def test_device_io_keeps_a_pinned_buffer_per_shape(cuda):
         assert outs["y"].is_pinned() and (outs["y"].numpy() == i + 1).all()
     for slot in io._slots:
         assert len(slot._bufs) == 4  # ("in", "y") x two shapes
+
+
+@pytest.mark.cuda
+def test_compute_aff_errors_cuda_matches_cpu(cuda, tmp_path):
+    """The prediction-error map on the card against its CPU route, on ids
+    past 2^32 and uint8 predictions: the map within 1e-6 (nine fp32 squares
+    summed in another order), the masks equal except where the error lies
+    within 1e-6 of a threshold, the counts equal."""
+    from bootstrapper_torch.core.arrays import open_ds, prepare_ds
+    from bootstrapper_torch.eval import compute_aff_errors
+
+    nbhd = get_net_config("3d_affs")["outputs"]["3d_affs"]["neighborhood"]
+    rng = np.random.default_rng(0)
+    shape = (12, 70, 66)
+    seg = (rng.integers(1, 6, (3, 7, 6)).astype(np.uint64) << np.uint64(33)).repeat(4, 0).repeat(10, 1).repeat(11, 2)
+    seg[:, :, :5] = 0
+    pred = rng.integers(0, 256, (len(nbhd), *shape)).astype(np.uint8)
+    arrays = {}
+    for name, a in (("seg", seg), ("pred", pred)):
+        ds = prepare_ds(str(tmp_path / "e.zarr" / name), a.shape, (0, 0, 0), (40, 4, 4), a.dtype)
+        ds[ds.roi] = a
+        arrays[name] = ds
+    runs = {
+        dev: compute_aff_errors(arrays["seg"], arrays["pred"], nbhd, str(tmp_path / f"{dev}.zarr"),
+                                block_shape=(8, 32, 32), device=dev)
+        for dev in (cuda, "cpu")
+    }
+    got, want = runs[cuda], runs["cpu"]
+    gm, wm = open_ds(got["error_map"]).to_ndarray(), open_ds(want["error_map"]).to_ndarray()
+    np.testing.assert_allclose(gm, wm, rtol=0, atol=1e-6)
+    tie = (np.abs(wm - 0.1) <= 1e-6) | (np.abs(wm - 1.0) <= 1e-6)
+    differs = open_ds(got["error_mask"]).to_ndarray() != open_ds(want["error_mask"]).to_ndarray()
+    assert not differs[~tie].any()
+    assert abs(got["nonzero_voxels"] - want["nonzero_voxels"]) <= int(differs[tie].sum())
+    assert got["total_voxels"] == want["total_voxels"] == seg.size
