@@ -8,7 +8,8 @@ setups).
 - The device transform does the rest on the card: renumbering,
   mirror/transpose, the gated elastic deform, the intensity chain,
   section defects, boundary growth, affinity targets, their mask and
-  balance weights, and the [-1, 1] input scaling.
+  balance weights, LSD targets (``ops/lsd.py``) with the mask as their
+  weights, and the [-1, 1] input scaling.
 
 The transform is a draw (``draw_transform``: every random number, scalars
 from the host generator, dense fields from the card's) and an apply
@@ -21,8 +22,7 @@ of ``vmap``.
 Semantics kept from the JAX package: 3D setups train at batch 1 and
 learning rate 0.5e-4; deform, noise, intensity, gamma, impulse and smooth
 each apply with probability 0.5; defects on multi-slice inputs.  2D
-setups (``adj_slices``, ``shift_augment``) and LSD targets are not ported
-and raise.
+setups (``adj_slices``, ``shift_augment``) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import torch
 
 from ..core.geometry import Coordinate
 from ..ops.affinities import affs_mask, balance_weights, grow_boundary, seg_to_affs
+from ..ops.lsd import lsd_descriptors_downsampled
 from ..train.sampler import ArtifactSampler, BatchLoader, RandomLocationSampler, Sample
 from .augment import (
     Generators,
@@ -117,9 +118,6 @@ class SetupSpec:
         """Raise ``NotImplementedError`` for what the port cannot train yet."""
         if self.is_2d or self.adj_slices > 1:
             raise NotImplementedError("2D setups (adj_slices, shift_augment) are not ported yet")
-        for name, out in self.net_config["outputs"].items():
-            if "neighborhood" not in out:
-                raise NotImplementedError(f"output {name!r}: LSD targets are not ported yet")
 
 
 def device_renumber(labels, max_labels: int = MAX_LABELS):
@@ -222,12 +220,19 @@ def apply_transform(
     targets, weights = {}, {}
     for name in spec.net_config["outputs"]:
         out = spec.output_spec(name)
-        lab = labels_out
-        if out.get("grow_boundary", 0):
-            lab = grow_boundary(lab, steps=out["grow_boundary"], only_xy=True, mask=mask_out)
-        t = seg_to_affs(lab, out["neighborhood"])
-        m = affs_mask(mask_out, out["neighborhood"])
-        w = balance_weights(t, m, slab_axis=0)
+        if "neighborhood" in out:  # affinities head
+            lab = labels_out
+            if out.get("grow_boundary", 0):
+                lab = grow_boundary(lab, steps=out["grow_boundary"], only_xy=True, mask=mask_out)
+            t = seg_to_affs(lab, out["neighborhood"])
+            m = affs_mask(mask_out, out["neighborhood"])
+            w = balance_weights(t, m, slab_axis=0)
+        else:  # LSD head
+            t = lsd_descriptors_downsampled(
+                labels_out, sigma=out["sigma"], voxel_size=spec.voxel_size,
+                downsample=out.get("downsample", 1), max_labels=MAX_LABELS,
+            )
+            w = mask_out[None].expand(t.shape)
         targets[name] = torch.movedim(t, 0, -1).to(torch.float32)
         weights[name] = torch.movedim(w, 0, -1).to(torch.float32)
     return (raw * 2.0 - 1.0)[..., None], targets, weights

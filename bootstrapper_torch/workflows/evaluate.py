@@ -103,6 +103,7 @@ def run_evaluation(
                         sigma=params["lsd_sigma"],
                         out_container=err_container,
                         thresholds=tuple(pred.get("thresholds", (0.1, 1.0))),
+                        device=device,
                     )
                 elif "aff_neighborhood" in params:
                     entry["pred_errors"] = compute_aff_errors(

@@ -1,15 +1,18 @@
-"""Prediction workflow: TOML config -> inference (the JAX package's
-``workflows/predict.py``, one device), for unchained image setups.
+"""Prediction workflow: TOML config -> chained inference (the JAX
+package's ``workflows/predict.py``, one device).
 
 The config is the JAX package's: ``[predict.<volume>]`` (or top-level
 ``[<volume>]``) tables with ``raw_dataset``, ``output_container``,
-optional ``roi_offset``/``roi_shape``, and a one-link ``chain`` of
-``{setup_dir, output_prefix, checkpoint_iteration}``.
+optional ``roi_offset``/``roi_shape``, and a ``chain`` of ``{setup_dir,
+output_prefix, checkpoint_iteration[, input_datasets]}``: an image model,
+then refiners, each reading the previous link's outputs (matched to its
+declared inputs by name), which stay in [0, 1] where raw is scaled to
+[-1, 1].
 
 As in the JAX package, a volume deeper than one tiled z pass is streamed
 in z (``predict/zstream.py``) when the net never pools z; other volumes
 are tiled (``predict/scan.py``).  ``BS_ZSTREAM=0`` in the environment
-opts out of streaming.  Chained refiners are not ported yet.
+opts out of streaming.
 """
 
 from __future__ import annotations
@@ -49,6 +52,63 @@ def _find_checkpoint(setup_dir: str, iteration) -> str:
     return latest
 
 
+def _align_chain_inputs(model, arrays, labels):
+    """Match chained input arrays to the model's declared inputs by NAME.
+
+    ``net_config['inputs']`` is an ordered mapping (e.g. 2d_lsds then
+    2d_affs for 3d_affs_from_2d_mtlsd); the tile reader concatenates
+    arrays positionally, so a reordered ``input_datasets`` list or
+    outputs dict would silently swap channel groups — both halves are
+    often the same width (6+6), so the conv succeeds and garbage is
+    written. The reference matches datasets by name
+    (``predict.py:246-265``); same here: reorder by name when every
+    declared input matches exactly one array, then validate channel
+    widths and fail loudly on a mismatch.
+    """
+    declared = [
+        (k, int(v.get("dims", 1)))
+        for k, v in model.net_config.get("inputs", {}).items()
+    ]
+    if not declared or (len(declared) <= 1 and len(arrays) == 1):
+        return arrays, labels
+
+    def _ch(a):
+        return a.shape[0] if len(a.shape) == len(a.roi.shape) + 1 else 1
+
+    base = [os.path.basename(os.path.normpath(str(l))) for l in labels]
+    picks = []
+    for name, _ in declared:
+        hits = [i for i, b in enumerate(base) if name in b]
+        if len(hits) != 1:
+            picks = None
+            break
+        picks.append(hits[0])
+    if picks is not None and len(set(picks)) == len(picks):
+        # Name matching also SELECTS when more datasets arrive than the
+        # model declares (a refiner taking a subset of the previous
+        # setup's outputs, e.g. 2d_mtlsd -> 3d_affs_from_2d_affs).
+        arrays = [arrays[i] for i in picks]
+        labels = [labels[i] for i in picks]
+    elif len(arrays) != len(declared):
+        raise ValueError(
+            f"chain link expects {len(declared)} input dataset(s) "
+            f"{[n for n, _ in declared]} but input_datasets provides "
+            f"{len(arrays)} ({list(map(str, labels))}) and they cannot "
+            "be matched by name; list exactly the declared inputs (or "
+            "name datasets after them)"
+        )
+    widths = [_ch(a) for a in arrays]
+    want = [d for _, d in declared]
+    if widths != want:
+        raise ValueError(
+            f"chain inputs {list(labels)} have channel widths {widths} "
+            f"but the model declares inputs {declared}; order "
+            "input_datasets to match (or name datasets after the "
+            "declared inputs so they can be matched)"
+        )
+    return arrays, labels
+
+
 def _maybe_zstream(model, raw, out_vox, tiled_out_z, device, compute_dtype):
     """A ``ZStreamPredictor`` where overlap-save z streaming applies, else
     None (the JAX package's ``_maybe_zstream`` on one device).
@@ -86,74 +146,72 @@ def run_prediction(
     volume: Optional[str] = None,
     roi_offset=None,
     roi_shape=None,
+    setup_id: Optional[str] = None,
     device=None,
     compute_dtype=torch.bfloat16,
 ) -> dict:
-    """Predict every volume of the config; returns per-volume stats
-    (tiles, seconds, output voxels/s; a stream adds its columns, steps
-    per column and plan)."""
+    """Run the prediction chain of every volume of the config; returns
+    per-link stats (tiles, seconds, output voxels/s; a stream adds its
+    columns, steps per column and plan).  ``setup_id`` restricts to the
+    chain links whose setup name contains it, each reading its configured
+    ``input_datasets`` from disk (re-running one setup of a chain)."""
     cfg = tomlio.load(config_file)
     cfg = cfg.get("predict", cfg)
     results = {}
     for volume_name, vcfg in cfg.items():
         if volume is not None and volume_name != volume:
             continue
-        if len(vcfg["chain"]) != 1:
-            raise NotImplementedError(
-                "chained prediction is not ported yet; give one chain link"
-            )
-        link = vcfg["chain"][0]
         raw = open_ds(vcfg["raw_dataset"])
         roi = None
         if roi_offset is not None:
             roi = Roi(roi_offset, roi_shape)
         elif "roi_offset" in vcfg:
             roi = Roi(vcfg["roi_offset"], vcfg["roi_shape"])
-        setup_dir = link["setup_dir"]
-        model = Model.from_setup(setup_dir, compute_dtype=compute_dtype)
-        if "raw" not in model.net_config.get("inputs", {"raw": {}}):
-            raise NotImplementedError(
-                f"{setup_dir} takes predictions as input; refiners are not "
-                "ported yet"
+
+        prev_arrays, prev_labels = [raw], ["raw"]
+        for idx, link in enumerate(vcfg["chain"]):
+            setup_dir = link["setup_dir"]
+            setup_name = os.path.basename(os.path.normpath(setup_dir))
+            if setup_id is not None:
+                if setup_id not in setup_name:
+                    continue
+                ins = link.get("input_datasets")
+                if ins:
+                    prev_arrays = [open_ds(p) for p in ins]
+                    prev_labels = list(ins)
+                elif idx > 0:
+                    # skipped earlier links leave prev_arrays == [raw];
+                    # running a refiner on raw would be silently wrong
+                    raise ValueError(
+                        f"--setup-id {setup_id!r} selects chain link {idx} ({setup_name}) but the "
+                        "config has no input_datasets for it; add them so the model gets its real inputs"
+                    )
+            model = Model.from_setup(setup_dir, compute_dtype=compute_dtype)
+            prev_arrays, prev_labels = _align_chain_inputs(model, prev_arrays, prev_labels)
+            ckpt = _find_checkpoint(setup_dir, link.get("checkpoint_iteration", "latest"))
+            load_params(model, load_checkpoint(ckpt))
+
+            # the output ROI: where every input has data, unless one is given
+            in_roi = prev_arrays[0].roi
+            for a in prev_arrays[1:]:
+                in_roi = in_roi.intersect(a.roi)
+            out_roi = in_roi if roi is None else roi
+            out_vox = tuple(s // v for s, v in zip(out_roi.shape, raw.voxel_size))
+            fitted = shrink_shape_increase(model, out_vox)
+            predictor = _maybe_zstream(
+                model, raw, out_vox, model.net_config["output_shape"][0] + fitted[0], device, compute_dtype,
+            ) or Predictor(model, raw.voxel_size, shape_increase=fitted, device=device, compute_dtype=compute_dtype)
+            if any(s < m for s, m in zip(out_roi.shape, predictor.output_size)):
+                raise ValueError(f"roi {out_roi} smaller than one output tile {predictor.output_size}")
+            outputs = prepare_prediction_outputs(
+                vcfg["output_container"], model, out_roi, raw.voxel_size, predictor,
+                dataset_prefix=link["output_prefix"] + "/",
             )
-        ckpt = _find_checkpoint(setup_dir, link.get("checkpoint_iteration", "latest"))
-        load_params(model, load_checkpoint(ckpt))
-        out_roi = raw.roi if roi is None else roi
-        out_vox = tuple(s // v for s, v in zip(out_roi.shape, raw.voxel_size))
-        fitted = shrink_shape_increase(model, out_vox)
-        predictor = _maybe_zstream(
-            model,
-            raw,
-            out_vox,
-            model.net_config["output_shape"][0] + fitted[0],
-            device,
-            compute_dtype,
-        ) or Predictor(
-            model,
-            raw.voxel_size,
-            shape_increase=fitted,
-            device=device,
-            compute_dtype=compute_dtype,
-        )
-        if any(s < m for s, m in zip(out_roi.shape, predictor.output_size)):
-            raise ValueError(
-                f"roi {out_roi} smaller than one output tile {predictor.output_size}"
+            stats = predictor.predict(prev_arrays, outputs, out_roi)
+            logger.info(
+                "%s / %s: %d tiles, %.2f Mvox/s",
+                volume_name, setup_name, stats["tiles"], stats["voxels_per_sec"] / 1e6,
             )
-        outputs = prepare_prediction_outputs(
-            vcfg["output_container"],
-            model,
-            out_roi,
-            raw.voxel_size,
-            predictor,
-            dataset_prefix=link["output_prefix"] + "/",
-        )
-        stats = predictor.predict(raw, outputs, out_roi)
-        logger.info(
-            "%s / %s: %d tiles, %.2f Mvox/s",
-            volume_name,
-            os.path.basename(setup_dir),
-            stats["tiles"],
-            stats["voxels_per_sec"] / 1e6,
-        )
-        results[f"{volume_name}/{link['output_prefix']}"] = stats
+            results[f"{volume_name}/{link['output_prefix']}"] = stats
+            prev_arrays, prev_labels = list(outputs.values()), list(outputs.keys())
     return results

@@ -81,7 +81,22 @@ Phases, each printing one JSON line:
     against the CPU route (within ERR_ATOL, masks equal except on ties,
     which are counted), each filter's output against the host filter
     recomputed; seconds per stage, segments before and after each filter,
-    VOI, error ratios and the pseudo-GT's coverage.
+    VOI, error ratios and the pseudo-GT's coverage;
+(l) the LSD setups: ``lsd``, the card's LSDs against the CPU route at a
+    training crop and at one error block, with TF32 switched on around
+    them (the route turns it off itself), their device ms and peak memory;
+    ``mtlsd_round``, a 3d_mtlsd round from ``make_round_configs`` without
+    GT on a fresh Voronoi sample of TRAIN_VOLUME: train (MTLSD_ITERATIONS),
+    predict (streamed, both heads), segment, evaluate by LSD errors on the
+    card, filter; one block of the scan against the CPU route, the GT's own
+    LSDs through the scan on a crop (under 1% masked), the scan by parts,
+    the steady train step; ``chain``, ``3d_lsd -> 3d_affs_from_3d_lsd``
+    with the shipped refiner on the same sample: train 3d_lsd
+    (CHAIN_ITERATIONS), predict the chain (both links streamed), segment;
+    the refiner's bf16 forward against the CPU fp32 one on the 3d_lsd
+    link's outputs, voxels/s per link.  Launch counts as in (r); the
+    refiner's K1 convs are held against the plain version and added to the
+    ``kernels`` line.
 
 Then the card's name and power limit as nvidia-smi reports them, the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -152,6 +167,25 @@ TRAIN_PREDICT_ROI = ((16, 96, 96), (16, 320, 320))
 # tie)
 ROUND_ITERATIONS = (80, 10)
 ERR_ATOL = 1e-6
+
+
+# the LSD setups (``lsd``, ``mtlsd_round``, ``chain``): the zoo's sigma and
+# downsample; the card's LSDs against the CPU route at a training crop (64
+# labels) and at one error block (the (16,128,128) block read with its
+# (6,60,60) margin, 256 labels): fp32 blurs summed in another order differ
+# by ~1e-6, TF32 ones by up to ~7e-4; the card's LSD error map against the
+# CPU route's (within LSD_ERR_ATOL); the GT's own LSDs through the error
+# scan on a crop of the sample, which may mask this share of the voxels;
+# the iterations of the 3d_mtlsd round and of the chain's 3d_lsd
+LSD_SIGMA = 80
+LSD_DOWNSAMPLE = 2
+LSD_CASES = [("train_crop", (4, 104, 104), 64), ("error_block", (28, 248, 248), 256)]
+LSD_ATOL = 1e-4
+LSD_ERR_ATOL = 1e-5
+SANITY_CROP = (16, 256, 256)
+SANITY_MAX_MASKED = 0.01
+MTLSD_ITERATIONS = 40
+CHAIN_ITERATIONS = 20
 
 
 # the streamed main path's volume: deeper than 96 slices and, at the plan's
@@ -291,12 +325,11 @@ def trace_kernel_convs(run) -> tuple:
     return out, cases
 
 
-def stream_conv_cases(net_config: dict, step_tile, s_warm: int) -> list:
+def trace_stream_convs(net_config: dict, step_tile, s_warm: int) -> tuple:
     """The kernel-route convs of a z stream's warm step (``s_warm`` output
     slices) and steady step (``step_tile``: s new slices at the stream's
-    xy), traced on the ``meta`` device, named after the tile's convs of
-    ``conv_cases`` (a step runs the same convs in the same order):
-    ``(name, input shape, crop, weight shape, bias)``."""
+    xy), traced on the ``meta`` device: ``(warm cases, steady cases)``, each
+    as ``trace_kernel_convs`` gives them."""
     import torch
 
     from bootstrapper_torch.models import Model
@@ -306,18 +339,32 @@ def stream_conv_cases(net_config: dict, step_tile, s_warm: int) -> list:
         model = Model(net_config).eval()
     ctx = z_context(model.unet_config)
     s, xy = step_tile[0], step_tile[1:]
-    warm_x = torch.empty((1, s_warm + ctx, *xy, 1), device="meta")
-    steady_x = torch.empty((1, s, *xy, 1), device="meta")
+    warm_x = torch.empty((1, s_warm + ctx, *xy, model.unet_config.in_channels), device="meta")
+    steady_x = torch.empty((1, s, *xy, model.unet_config.in_channels), device="meta")
     with torch.no_grad():
         (_, state), warm = trace_kernel_convs(lambda: model.forward_stream(warm_x, None))
         _, steady = trace_kernel_convs(lambda: model.forward_stream(steady_x, state))
+    return warm, steady
+
+
+def stream_conv_cases(net_config: dict, step_tile, s_warm: int) -> list:
+    """``trace_stream_convs`` of a net with the 3d_affs trunk, named after
+    the tile's convs of ``conv_cases`` (a step runs the same convs in the
+    same order): ``(name, input shape, crop, weight shape, bias)``."""
     tile_cases = conv_cases()
     out = []
-    for phase, cases in (("warm", warm), ("steady", steady)):
+    for phase, cases in zip(("warm", "steady"), trace_stream_convs(net_config, step_tile, s_warm)):
         if [(c[2], c[3]) for c in cases] != [(t[3], t[4]) for t in tile_cases]:
             raise AssertionError(f"the stream's {phase} step runs other kernel convs than a tile")
         out += [(f"{phase}_{t[0]}", *c) for t, c in zip(tile_cases, cases)]
     return out
+
+
+def conv_key(case) -> tuple:
+    """``(input view shape, weight shape)`` of a traced conv, as the launch
+    counts key it."""
+    xs, crop, ws = case[-4], case[-3], case[-2]
+    return ((xs[0], *crop, xs[-1]) if crop else tuple(xs), tuple(ws))
 
 
 def conv_inputs(gen, xs, crop, ws, with_bias, dtype):
@@ -1134,10 +1181,7 @@ def train_conv_cases(net_config: dict) -> list:
 def train_conv_keys(net_config: dict) -> set:
     """``(input view shape, weight shape)`` of each kernel conv of a
     training forward, as the launch counts key them."""
-    return {
-        ((xs[0], *crop, xs[-1]) if crop else tuple(xs), tuple(ws))
-        for _, xs, crop, ws, _ in train_conv_cases(net_config)
-    }
+    return {conv_key(c) for c in train_conv_cases(net_config)}
 
 
 def check_conv_function(seed: int, device="cuda") -> list:
@@ -1341,8 +1385,9 @@ def train_round(paths: dict, iterations, device="cuda") -> dict:
     }
 
 
-def time_train_step(net_config: dict, paths: dict, seed: int, steps: int, device="cuda") -> dict:
-    """The steady train step at the net's input shape, by parts, over
+def time_train_step(net_config: dict, sample_root: str, voxel_size, seed: int, steps: int, device="cuda") -> dict:
+    """The steady train step at the net's input shape, on the sample in
+    ``sample_root`` (Zarr with raw, labels and mask), by parts, over
     ``steps`` steps after three warm ones: host wait on the loader (host
     clock), then CUDA events around the device transform, forward, backward
     and optimizer; the wall time per step; peak memory; then one step under
@@ -1357,9 +1402,8 @@ def time_train_step(net_config: dict, paths: dict, seed: int, steps: int, device
     from bootstrapper_torch.train.loop import create_train_state, loss_fn
     from bootstrapper_torch.train.sampler import Sample
 
-    root = os.path.join(os.path.dirname(paths["train_toml"]), "sample.zarr")
-    sample = Sample(*(open_ds(os.path.join(root, k)) for k in ("raw", "labels", "mask")))
-    pipe = TrainingPipeline(net_config, paths["voxel_size"], [sample], seed=seed, device=device)
+    sample = Sample(*(open_ds(os.path.join(sample_root, k)) for k in ("raw", "labels", "mask")))
+    pipe = TrainingPipeline(net_config, voxel_size, [sample], seed=seed, device=device)
     state = create_train_state(Model(net_config).to(device), seed, 0.5e-4)
     model, opt = state.model, state.optimizer
     names = ("transform", "forward", "backward", "optimizer")
@@ -1505,7 +1549,7 @@ def train_phase(seed: int, net_config: dict, shape, iterations, overfit_steps: i
                 f"(not one per iteration at {off_plan})"
             )
         if device == "cuda":
-            out["step"] = time_train_step(net_config, paths, seed, timed_steps, device)
+            out["step"] = time_train_step(net_config, root, paths["voxel_size"], seed, timed_steps, device)
     return out, rows
 
 
@@ -1528,38 +1572,50 @@ def stage(log: dict, name: str, fn):
     return out
 
 
-def aff_errors_by_parts(seg, pred, neighborhood, out_container, device) -> dict:
-    """``compute_aff_errors`` on ``device`` once more, with the upload and
-    the device's work of every block synchronised and timed on the host's
-    clock; the rest of the wall time is the host's (reads, renumbering,
-    downloads, writes)."""
+def errors_by_parts(run, block_fn: str) -> dict:
+    """``run()``, an error scan on the card, once more with each block's
+    upload, device work (``eval.errors.<block_fn>``) and download
+    synchronised and timed on the host's clock; the rest of the wall time
+    is the host's (Zarr reads, renumbering, writes).  Also the blocks, the
+    seconds per block and the scan's peak device memory."""
     import torch
 
     from bootstrapper_torch.eval import errors as E
 
-    parts = {"upload": 0.0, "device": 0.0}
-    real = E.upload_block, E.block_error
+    names = {"upload": "upload_block", "device": block_fn, "download": "download_block"}
+    parts = dict.fromkeys(names, 0.0)
+    real = {k: getattr(E, n) for k, n in names.items()}
+    blocks = 0
 
     def timed(key, fn):
-        def run(*args, **kw):
+        def call(*args, **kw):
+            nonlocal blocks
+            blocks += key == "device"
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             parts[key] += time.perf_counter() - t0
             return out
 
-        return run
+        return call
 
-    E.upload_block, E.block_error = timed("upload", real[0]), timed("device", real[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k, n in names.items():
+        setattr(E, n, timed(k, real[k]))
     try:
         t0 = time.perf_counter()
-        E.compute_aff_errors(seg, pred, neighborhood, out_container, device=device)
+        run()
         wall = time.perf_counter() - t0
     finally:
-        E.upload_block, E.block_error = real
+        for k, n in names.items():
+            setattr(E, n, real[k])
     return {
-        "wall_s": wall, "upload_s": parts["upload"], "device_s": parts["device"],
-        "host_rest_s": wall - parts["upload"] - parts["device"],
+        "wall_s": wall, **{f"{k}_s": v for k, v in parts.items()},
+        "host_rest_s": wall - sum(parts.values()), "blocks": blocks, "seconds_per_block": wall / max(blocks, 1),
+        "device_s_per_block": parts["device"] / max(blocks, 1),
+        "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
     }
 
 
@@ -1616,6 +1672,29 @@ def write_gt_affinities(labels, pred, neighborhood, device) -> None:
     pred[pred.roi] = affs[(slice(None), *crop)].cpu().numpy()
 
 
+def write_gt_lsds(labels, pred, device) -> None:
+    """Overwrite the LSD prediction ``pred`` (uint8, channels first) with
+    the GT ``labels``' own LSDs, as a perfect net would predict them: per
+    block of the LSD error scan, from the labels read with the scan's
+    margin (renumbered on the host) in its id chunks, the core written as
+    ``round(lsd * 255)``."""
+    import torch
+
+    from bootstrapper_torch.core.geometry import Coordinate
+    from bootstrapper_torch.eval import errors as E
+    from bootstrapper_torch.predict.scan import tile_rois
+    from bootstrapper_torch.train.sampler import renumber
+
+    vs = pred.voxel_size
+    pad = E.lsd_context((LSD_SIGMA,) * 3, vs)
+    block = Coordinate(min(b * v, s) for b, v, s in zip((16, 128, 128), vs, pred.roi.shape))
+    for wroi in tile_rois(pred.roi, block):
+        ids = renumber(labels.to_ndarray(wroi.grow(pad, pad)))
+        lsds = E.block_lsds(torch.from_numpy(ids).to(device), int(ids.max()), (LSD_SIGMA,) * 3, tuple(vs), LSD_DOWNSAMPLE)
+        core = tuple(slice(p // v, p // v + s // v) for p, v, s in zip(pad, vs, wroi.shape))
+        pred[wroi] = torch.round(torch.clamp(lsds[(slice(None), *core)], 0, 1) * 255).to(torch.uint8).cpu().numpy()
+
+
 def check_filter(result: dict, best: str, err_mask, fcfg: dict) -> dict:
     """``run_filter``'s output against the host filter recomputed: it
     filtered the evaluation's best segmentation, every voxel is the
@@ -1670,6 +1749,25 @@ def round_zero_share(net_config: dict, volume: dict, checkpoint: str, seed: int,
     }
 
 
+def write_round_sample(work: str, shape, seed: int, device) -> dict:
+    """``voronoi_sample`` of ``shape`` as uncompressed Zarr in
+    ``work/vol.zarr``; the volumes dict ``make_round_configs`` takes."""
+    from bootstrapper_torch.core.arrays import prepare_ds
+
+    container, voxel_size = os.path.join(work, "vol.zarr"), (40, 4, 4)
+    sample = voronoi_sample(shape, max(8, int(np.prod(shape) // 40_000)), seed, device)
+    for name, a in sample.items():
+        ds = prepare_ds(os.path.join(container, name), a.shape, (0, 0, 0), voxel_size, a.dtype)
+        ds[ds.roi] = a
+    return {
+        "vol": {
+            "raw_dataset": f"{container}/raw", "labels_dataset": f"{container}/labels",
+            "labels_mask_dataset": f"{container}/mask", "voxel_size": list(voxel_size),
+            "output_container": container,
+        }
+    }
+
+
 def round_phase(seed: int, net_config: dict, shape, iterations, train_shapes=None, device="cuda") -> tuple:
     """One whole round through the entry points, as a user runs it from
     the configs ``make_round_configs`` writes: round 1 on the Voronoi
@@ -1688,7 +1786,7 @@ def round_phase(seed: int, net_config: dict, shape, iterations, train_shapes=Non
     against the host filter.  Returns the phase's line, K1's rows at the
     predict shapes and K2's at the segment's."""
     from bootstrapper_torch import configs
-    from bootstrapper_torch.core.arrays import open_ds, prepare_ds
+    from bootstrapper_torch.core.arrays import open_ds
     from bootstrapper_torch.eval import compute_aff_errors
     from bootstrapper_torch.utils import tomlio
     from bootstrapper_torch.workflows import (
@@ -1701,27 +1799,14 @@ def round_phase(seed: int, net_config: dict, shape, iterations, train_shapes=Non
     out = {"volume": list(shape), "iterations": list(iterations)}
     with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_round_") as work:
         t0 = time.perf_counter()
-        container, voxel_size = os.path.join(work, "vol.zarr"), (40, 4, 4)
-        sample = voronoi_sample(shape, max(8, int(np.prod(shape) // 40_000)), seed, device)
-        for name, a in sample.items():
-            ds = prepare_ds(os.path.join(container, name), a.shape, (0, 0, 0), voxel_size, a.dtype)
-            ds[ds.roi] = a
-        del sample
-        volumes = {
-            "vol": {
-                "raw_dataset": f"{container}/raw", "labels_dataset": f"{container}/labels",
-                "labels_mask_dataset": f"{container}/mask", "voxel_size": list(voxel_size),
-                "output_container": container,
-            }
-        }
+        volumes = write_round_sample(work, shape, seed, device)
+        container = volumes["vol"]["output_container"]
 
         def make_round(name, vols, n, **kw):
             paths = configs.make_round_configs(
                 os.path.join(work, name), vols, ["3d_affs"], max_iterations=n, **kw
             )
-            # the zoo's net config, as written; a narrower one in a rehearsal
-            with open(os.path.join(work, name, "setups", "3d_affs", "net_config.json"), "w") as f:
-                json.dump(net_config, f)
+            write_setup_config(os.path.join(work, name, "setups", "3d_affs"), net_config)
             return paths
 
         r1 = make_round("round_1", volumes, first_n, gt_labels=f"{container}/labels")
@@ -1777,8 +1862,9 @@ def round_phase(seed: int, net_config: dict, shape, iterations, train_shapes=Non
             gt_ds, pred, nbhd, thresholds, os.path.join(work, "cpu_errors", "gt_labels"),
         )
         if device == "cuda":
-            out["errors_by_parts"] = aff_errors_by_parts(
-                open_ds(best), pred, nbhd, os.path.join(work, "timed_errors"), device
+            out["errors_by_parts"] = errors_by_parts(
+                lambda: compute_aff_errors(open_ds(best), pred, nbhd, os.path.join(work, "timed_errors"), device=device),
+                "block_error",
             )
         gt = gt_ds.to_ndarray()
         setup1 = os.path.join(work, "round_1", "setups", "3d_affs")
@@ -1857,6 +1943,414 @@ def round_phase(seed: int, net_config: dict, shape, iterations, train_shapes=Non
     }
     out["seed_launches"] = seed_launches
     return out, rows, seed_rows
+
+
+# -- (l) the LSD setups ----------------------------------------------------
+
+
+def lsd_phase(seed: int, device="cuda") -> dict:
+    """``lsd_descriptors_downsampled`` on the card against its CPU route at
+    each of LSD_CASES (Voronoi ids, renumbered, clamped to the case's
+    labels), with TF32 switched on for cuBLAS and cuDNN around the card's
+    call, which the LSD route must turn off itself: max |diff| within
+    LSD_ATOL.  Device ms (CUDA events around calls queued behind a device
+    sleep), the call's ms, its peak memory and the CPU route's seconds."""
+    import torch
+
+    from bootstrapper_torch.ops.lsd import lsd_descriptors_downsampled
+    from bootstrapper_torch.train.sampler import renumber
+
+    out = {}
+    for name, shape, max_labels in LSD_CASES:
+        ids = renumber(voronoi_sample(shape, max_labels + max_labels // 8, seed, device)["labels"])
+        seg = torch.from_numpy(ids.astype(np.int64))
+
+        def run(s):
+            return lsd_descriptors_downsampled(
+                s, LSD_SIGMA, (40, 4, 4), downsample=LSD_DOWNSAMPLE, max_labels=max_labels
+            )
+
+        t0 = time.perf_counter()
+        want = run(seg)
+        cpu_s = time.perf_counter() - t0
+        seg_d = seg.to(device)
+        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            got = run(seg_d).cpu()
+            if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != (True, True):
+                raise AssertionError("the LSD route left the caller's TF32 setting changed")
+            ms = cuda_time_ms(lambda: run(seg_d), iters=5, queued=True)
+            call_ms = cuda_time_ms(lambda: run(seg_d), iters=5)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run(seg_d)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        err = float((got - want).abs().max())
+        if not err <= LSD_ATOL or not torch.isfinite(got).all():
+            raise AssertionError(f"LSDs {name}: card against CPU max |err| {err} > {LSD_ATOL}")
+        out[name] = {
+            "shape": list(shape), "max_labels": max_labels, "ids": int(ids.max()),
+            "max_abs_err": err, "atol": LSD_ATOL, "ms": ms, "call_ms": call_ms,
+            "peak_memory_gb": peak / 1e9, "cpu_seconds": cpu_s,
+        }
+    return out
+
+
+def launch_group(stage_log: dict, cases) -> dict:
+    """A stage's K1 launches by conv beside the traced convs it may run
+    (``(name, input shape, crop, weight shape, bias)``), for the
+    ``kernels`` line."""
+    return {"by_conv": dict(stage_log["conv_launches"]), "cases": list(cases)}
+
+
+def check_stream_launches(name: str, by_conv: dict, warm, steady, stats: dict) -> None:
+    """K1 once per column at each warm-step conv and once per later step
+    at each steady-step conv of a streamed prediction, nowhere else."""
+    if "steps_per_column" not in stats:
+        raise AssertionError(f"{name}: the prediction was not streamed: {stats}")
+    columns, steps = stats["columns"], stats["steps_per_column"]
+    want: dict = {}
+    for cases, n in ((warm, columns), (steady, columns * (steps - 1))):
+        for c in cases:
+            want[conv_key(c)] = want.get(conv_key(c), 0) + n
+    if by_conv != want:
+        raise AssertionError(f"{name}: conv kernel launches {by_conv}, want {want}")
+
+
+def check_train_launches(name: str, by_conv: dict, net_config: dict, n: int) -> None:
+    keys = train_conv_keys(net_config)
+    if set(by_conv) != keys or set(by_conv.values()) != {n}:
+        raise AssertionError(f"{name}: conv kernel launches {by_conv}, want {n} at each of {len(keys)}")
+
+
+def check_lsd_block(seg, pred, seed: int, device) -> dict:
+    """One block of the LSD error scan, on the card and on the CPU route
+    from the same host block: the map within LSD_ERR_ATOL, the masks equal
+    except on ties.  The block is drawn from ``seed`` among the scan's."""
+    from bootstrapper_torch.core.geometry import Coordinate
+    from bootstrapper_torch.eval import errors as E
+    from bootstrapper_torch.predict.scan import tile_rois
+    from bootstrapper_torch.train.sampler import renumber
+
+    vs = seg.voxel_size
+    roi = seg.roi.intersect(pred.roi)
+    blocks = tile_rois(roi, Coordinate(min(b * v, s) for b, v, s in zip((16, 128, 128), vs, roi.shape)))
+    block = blocks[np.random.default_rng(seed).integers(len(blocks))]
+    pad = E.lsd_context((LSD_SIGMA,) * 3, vs)
+    ids = renumber(seg.to_ndarray(block.grow(pad, pad)))
+    p = pred.to_ndarray(block.grow(pad, pad))
+    runs = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        seg_t, pred_t = E.upload_block(ids, p, dev)
+        err, mask = E.block_lsd_error(seg_t, int(ids.max()), pred_t, (LSD_SIGMA,) * 3, tuple(vs), LSD_DOWNSAMPLE)
+        runs[dev] = (err.cpu().numpy(), mask.cpu().numpy(), time.perf_counter() - t0)
+    (got, got_mask, dev_s), (want, want_mask, cpu_s) = runs[device], runs["cpu"]
+    diff = float(np.abs(got - want).max())
+    tie = (np.abs(want - 0.1) <= LSD_ERR_ATOL) | (np.abs(want - 1.0) <= LSD_ERR_ATOL)
+    out = {
+        "block": [list(block.offset), list(block.shape)], "read_shape": list(ids.shape), "ids": int(ids.max()),
+        "max_abs_err": diff, "atol": LSD_ERR_ATOL, "ties": int(tie.sum()),
+        "masks_differ_elsewhere": int((got_mask != want_mask)[~tie].sum()),
+        "device_call_s": dev_s, "cpu_s": cpu_s, "mean_error": float(want.mean()),
+    }
+    if diff > LSD_ERR_ATOL or out["masks_differ_elsewhere"]:
+        raise AssertionError(f"LSD error block on the card against the CPU route: {out}")
+    return out
+
+
+def lsd_sanity(labels, work: str, device) -> dict:
+    """``compute_lsd_errors`` of a SANITY_CROP of the GT ``labels`` against
+    the crop's own LSDs written as uint8: they are computed on the whole
+    crop in id chunks of 255 (``errors.block_lsds``, as the scan chunks
+    them), so every block the scan reads agrees with them up to the uint8
+    step, and under SANITY_MAX_MASKED of the voxels may be masked."""
+    import torch
+
+    from bootstrapper_torch.core.arrays import open_ds, prepare_ds
+    from bootstrapper_torch.core.geometry import Coordinate, Roi
+    from bootstrapper_torch.eval import compute_lsd_errors
+    from bootstrapper_torch.eval import errors as E
+    from bootstrapper_torch.train.sampler import renumber
+
+    vs = labels.voxel_size
+    shape = Coordinate(SANITY_CROP)
+    begin = (labels.roi.shape / vs - shape) // 2 * vs + labels.roi.begin
+    crop = Roi(begin, shape * vs)
+    ids = labels.to_ndarray(crop)
+    dense = renumber(ids)
+    lsds = E.block_lsds(torch.from_numpy(dense).to(device), int(dense.max()), (LSD_SIGMA,) * 3, tuple(vs), LSD_DOWNSAMPLE)
+    q = torch.round(torch.clamp(lsds, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+    arrays = {}
+    for name, a in (("labels", ids), ("lsds", q)):
+        ds = prepare_ds(os.path.join(work, "sanity.zarr", name), a.shape, crop.offset, vs, a.dtype)
+        ds[ds.roi] = a
+        arrays[name] = ds
+    res = compute_lsd_errors(
+        arrays["labels"], arrays["lsds"], LSD_SIGMA, os.path.join(work, "sanity_errors.zarr"), device=device
+    )
+    err = open_ds(res["error_map"]).to_ndarray()
+    out = {
+        "crop": [list(crop.offset), list(SANITY_CROP)], "ids": int(dense.max()),
+        "masked_share": res["nonzero_ratio"], "max_masked_share": SANITY_MAX_MASKED,
+        "mean_error": float(err.mean()), "max_error": float(err.max()),
+    }
+    if not res["nonzero_ratio"] < SANITY_MAX_MASKED:
+        raise AssertionError(f"LSD errors of the GT against its own LSDs: {out}")
+    return out
+
+
+def write_setup_config(setup_dir: str, net_config: dict) -> None:
+    """``net_config`` over the setup's ``net_config.json`` (the zoo's, as
+    ``make_round_configs`` wrote it; a narrower one in a rehearsal)."""
+    with open(os.path.join(setup_dir, "net_config.json"), "w") as f:
+        json.dump(net_config, f)
+
+
+def mtlsd_round_phase(work: str, volumes: dict, seed: int, net_config: dict, iterations: int,
+                      timed_steps: int, device="cuda") -> tuple:
+    """A 3d_mtlsd round from the configs ``make_round_configs`` writes
+    without GT, on the Voronoi sample ``volumes`` names: train (both
+    heads), predict (streamed, both heads written), segment (ws), evaluate
+    by LSD errors against the LSD head (on the card), filter; then segment,
+    evaluate and filter again from the same configs on the GT's own
+    affinities and LSDs written over both heads (``gt_heads``: what a
+    perfect net would hand on).  Checks: both heads' outputs; K1 once per
+    iteration at each training shape and on every predict step; K2 in each
+    segment; a block of the scan on the card against the CPU route (GT
+    labels, and the perfect pass's best segmentation); the GT's own LSDs
+    through the scan (``lsd_sanity``); each filter against the host
+    filter.  The scan once more by parts, and the steady train step.
+    Returns the phase's line and its K1 launch groups."""
+    from bootstrapper_torch import configs
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.eval import compute_lsd_errors
+    from bootstrapper_torch.utils import tomlio
+    from bootstrapper_torch.workflows import (
+        run_evaluation, run_filter, run_prediction, run_segmentation, run_training,
+    )
+    from bootstrapper_torch.workflows.filter import get_best_seg_from_eval
+
+    stages: dict = {}
+    vol = volumes["vol"]
+    container = vol["output_container"]
+    t0 = time.perf_counter()
+    round_dir = os.path.join(work, "mtlsd")
+    paths = configs.make_round_configs(round_dir, volumes, ["3d_mtlsd"], max_iterations=iterations)
+    write_setup_config(os.path.join(round_dir, "setups", "3d_mtlsd"), net_config)
+    ev = tomlio.load(paths["evaluate"])["evaluate"]["vol"]
+    if "gt" in ev or ev["pred"]["params"] != {"lsd_sigma": LSD_SIGMA}:
+        raise AssertionError(f"the round's evaluation does not score by LSD errors: {ev}")
+    (link,) = tomlio.load(paths["predict"])["predict"]["vol"]["chain"]
+    labels = open_ds(vol["labels_dataset"])
+    out = {"volume": list(labels.roi.shape / labels.voxel_size), "prepare_seconds": time.perf_counter() - t0}
+
+    train = stage(stages, "train", lambda: run_training(paths["train_3d_mtlsd"], device=device))
+    (pstats,) = stage(stages, "predict", lambda: run_prediction(paths["predict"], device=device)).values()
+    if train["iterations"] != iterations:
+        raise AssertionError(f"training: {train}")
+    fcfg = tomlio.load(paths["filter"])["filter"]["vol"]
+
+    def segment_evaluate_filter(suffix):
+        """segment, evaluate by LSD errors and filter from the round's
+        configs; the filter held against the host filter."""
+        segs = stage(stages, f"segment{suffix}", lambda: run_segmentation(paths["segment"], device=device))["vol"]
+        evaluation = stage(stages, f"evaluate{suffix}", lambda: run_evaluation(paths["evaluate"], device=device))["vol"]
+        filtered = stage(stages, f"filter{suffix}", lambda: run_filter(paths["filter"]))["vol"]
+        best, err_mask = get_best_seg_from_eval(os.path.join(container, "eval", "vol_results.json"))
+        return best, {
+            "segments_per_threshold": {
+                t: int(len(np.unique(open_ds(p).to_ndarray())) - 1) for t, p in segs.items()
+            },
+            "error_ratio": {os.path.basename(p): e["pred_errors"]["nonzero_ratio"] for p, e in evaluation.items()},
+            "best_segmentation": os.path.basename(best),
+            **check_filter(filtered, best, err_mask, fcfg),
+        }
+
+    _, quality = segment_evaluate_filter("")
+    heads = {}
+    for name, out_cfg in net_config["outputs"].items():
+        a = open_ds(os.path.join(container, link["output_prefix"], name))
+        c = len(out_cfg["neighborhood"]) if "neighborhood" in out_cfg else out_cfg["dims"]
+        if a.shape != (c, *out["volume"]) or a.dtype != np.uint8:
+            raise AssertionError(f"head {name}: {a.shape} {a.dtype}")
+        heads[name] = a
+    out.update(
+        heads_mean={k: float(a.to_ndarray().mean()) for k, a in heads.items()},
+        final_loss=train["final_loss"], predict={k: pstats[k] for k in pstats if k != "plan"}, **quality,
+    )
+    lsds = heads["3d_lsds"]
+    block_checks = {"gt_labels": check_lsd_block(labels, lsds, seed, device)}
+
+    # the same stages on a perfect prediction of both heads (a net this
+    # young segments little or nothing, and its LSD errors then score an
+    # empty segmentation)
+    write_gt_affinities(labels, heads["3d_affs"], net_config["outputs"]["3d_affs"]["neighborhood"], device)
+    write_gt_lsds(labels, lsds, device)
+    best, out["gt_heads"] = segment_evaluate_filter("_gt_heads")
+    block_checks["gt_heads_best_segmentation"] = check_lsd_block(open_ds(best), lsds, seed, device)
+    out["error_block_vs_cpu"] = block_checks
+    out["sanity"] = lsd_sanity(labels, work, device)
+    if device == "cuda":
+        # the scan by parts on the GT labels, whose blocks hold tens of ids
+        # (a young net's segmentation may hold none)
+        out["errors_by_parts"] = errors_by_parts(
+            lambda: compute_lsd_errors(labels, lsds, LSD_SIGMA, os.path.join(work, "timed_lsd_errors"), device=device),
+            "block_lsd_error",
+        )
+        out["step"] = time_train_step(net_config, container, vol["voxel_size"], seed, timed_steps, device)
+    out["stage_seconds"] = {k: v["seconds"] for k, v in stages.items()}
+    out["launches"] = {k: v["launches"] for k, v in stages.items()}
+    if device != "cuda":
+        return out, []
+
+    snapshot_every = tomlio.load(paths["train_3d_mtlsd"])["train"]["save_snapshots_every"] or 10**9
+    check_train_launches("mtlsd train", stages["train"]["conv_launches"], net_config,
+                         iterations + iterations // snapshot_every)
+    step_tile = [pstats["step_z"], *pstats["input_tile"][1:]]
+    cases = stream_conv_cases(net_config, step_tile, pstats["warm_step_z"])
+    warm = [c for c in cases if c[0].startswith("warm_")]
+    check_stream_launches("mtlsd predict", stages["predict"]["conv_launches"], warm,
+                          [c for c in cases if c not in warm], pstats)
+    seed_launches = [stages[k]["launches"]["seed_maxima.kernel"] for k in ("segment", "segment_gt_heads")]
+    if min(seed_launches) < 1:
+        raise AssertionError(f"mtlsd segment: the seed kernel did not run in each: {seed_launches}")
+    out["seed_launches"] = sum(seed_launches)
+    groups = [
+        launch_group(stages["train"], train_conv_cases(net_config)),
+        launch_group(stages["predict"], [(f"mtlsd_{c[0]}", *c[1:]) for c in cases]),
+    ]
+    return out, groups
+
+
+def chain_phase(work: str, volumes: dict, seed: int, net_config: dict, iterations: int, device="cuda") -> tuple:
+    """The chain ``3d_lsd -> 3d_affs_from_3d_lsd`` from the configs
+    ``make_round_configs`` writes, on the Voronoi sample ``volumes`` names:
+    train 3d_lsd, predict the chain (both links streamed, the refiner with
+    its shipped checkpoint), segment.  Checks: the refiner's shipped
+    checkpoint installed; its bf16 forward on the card against the CPU fp32
+    forward on a crop of the 3d_lsd link's real outputs; K1 once per
+    iteration at each training shape and on every step of both links; K2 in
+    the segment.  Returns the phase's line and its K1 launch groups."""
+    import torch
+
+    from bootstrapper_torch import configs
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models import Model, load_checkpoint, load_params
+    from bootstrapper_torch.models.weights import latest_checkpoint
+    from bootstrapper_torch.utils import tomlio
+    from bootstrapper_torch.workflows import run_prediction, run_segmentation, run_training
+
+    names = ["3d_lsd", "3d_affs_from_3d_lsd"]
+    stages: dict = {}
+    vol = volumes["vol"]
+    container = vol["output_container"]
+    chain_dir = os.path.join(work, "chain")
+    paths = configs.make_round_configs(chain_dir, volumes, names, max_iterations=iterations)
+    write_setup_config(os.path.join(chain_dir, "setups", "3d_lsd"), net_config)
+    refiner_dir = os.path.join(chain_dir, "setups", names[1])
+    shipped = latest_checkpoint(refiner_dir)
+    if shipped is None or not shipped.endswith("model_checkpoint_20000"):
+        raise AssertionError(f"the refiner's shipped checkpoint is not installed: {shipped}")
+    links = tomlio.load(paths["predict"])["predict"]["vol"]["chain"]
+    out = {"iterations": iterations, "refiner_checkpoint": os.path.basename(shipped)}
+
+    train = stage(stages, "train", lambda: run_training(paths["train_3d_lsd"], device=device))
+    stats = stage(stages, "predict", lambda: run_prediction(paths["predict"], device=device))
+    segs = stage(stages, "segment", lambda: run_segmentation(paths["segment"], device=device))["vol"]
+    if train["iterations"] != iterations:
+        raise AssertionError(f"training: {train}")
+    per_link = [stats[f"vol/{link['output_prefix']}"] for link in links]
+    out["links"] = {
+        name: {k: s[k] for k in s if k != "plan"} for name, s in zip(names, per_link)
+    }
+    out["voxels_per_sec"] = {name: s["voxels_per_sec"] for name, s in zip(names, per_link)}
+    out["segments_per_threshold"] = {
+        t: int(len(np.unique(open_ds(p).to_ndarray())) - 1) for t, p in segs.items()
+    }
+    lsds = open_ds(os.path.join(container, links[0]["output_prefix"], "3d_lsds"))
+    affs = open_ds(os.path.join(container, links[1]["output_prefix"], "3d_affs"))
+    if affs.shape != (9, *lsds.shape[1:]) or affs.dtype != np.uint8:
+        raise AssertionError(f"the refiner's affinities: {affs.shape} {affs.dtype}")
+    out["affs_mean"] = float(affs.to_ndarray().mean())
+
+    # the refiner in bf16 on the card against fp32 on the CPU, on a crop of
+    # the 3d_lsd link's outputs at the refiner's input shape
+    nc = Model.from_setup(refiner_dir).net_config
+    params = load_checkpoint(shipped)
+    shape = nc["input_shape"]
+    src = lsds.to_ndarray()
+    begin = [(s - t) // 2 for s, t in zip(src.shape[1:], shape)]
+    crop = src[(slice(None), *(slice(b, b + t) for b, t in zip(begin, shape)))]
+    x = torch.from_numpy(np.moveaxis(crop, 0, -1)[None].astype(np.float32) / np.float32(255))
+    with torch.no_grad():
+        ref = load_params(Model(nc, compute_dtype=torch.float32), params).eval()(x)["3d_affs"]
+        card = load_params(Model(nc, compute_dtype=torch.bfloat16), params).to(device, torch.bfloat16).eval()
+        got = card(x.to(device))["3d_affs"].float().cpu()
+    err = float((got - ref).abs().max())
+    out["refiner_forward"] = {"input": list(shape), "bf16_max_abs_err": err, "atol": FWD_ATOL_BF16,
+                              "input_mean": float(crop.mean()) / 255}
+    if not err <= FWD_ATOL_BF16 or not torch.isfinite(got).all():
+        raise AssertionError(f"refiner bf16 forward against CPU fp32: {out['refiner_forward']}")
+    out["stage_seconds"] = {k: v["seconds"] for k, v in stages.items()}
+    out["launches"] = {k: v["launches"] for k, v in stages.items()}
+    if device != "cuda":
+        return out, []
+
+    snapshot_every = tomlio.load(paths["train_3d_lsd"])["train"]["save_snapshots_every"] or 10**9
+    check_train_launches("chain train", stages["train"]["conv_launches"], net_config,
+                         iterations + iterations // snapshot_every)
+    # each link's kernel convs at its own plan; the two nets share none
+    by_conv = dict(stages["predict"]["conv_launches"])
+    cases, out["conv_launches_by_link"] = [], {}
+    for name, link_nc, s in ((names[0], net_config, per_link[0]), (names[1], nc, per_link[1])):
+        step_tile = [s["step_z"], *s["input_tile"][1:]]
+        warm, steady = trace_stream_convs(link_nc, step_tile, s["warm_step_z"])
+        keys = {conv_key(c) for c in warm + steady}
+        link = {k: by_conv.pop(k) for k in keys if k in by_conv}
+        check_stream_launches(f"chain predict {name}", link, warm, steady, s)
+        out["conv_launches_by_link"][name] = sum(link.values())
+        for phase, traced in (("warm", warm), ("steady", steady)):
+            for i, c in enumerate(traced):
+                ci, co, k = c[2][3], c[2][4], c[2][0]
+                cases.append((f"chain_{name}_{phase}_{i}_{ci}to{co}_k{k}", *c))
+    if by_conv or min(out["conv_launches_by_link"].values()) < 1:
+        raise AssertionError(f"chain predict: conv kernel launches {stages['predict']['conv_launches']}")
+    if stages["segment"]["launches"]["seed_maxima.kernel"] < 1:
+        raise AssertionError("chain segment: the seed kernel did not run")
+    out["seed_launches"] = stages["segment"]["launches"]["seed_maxima.kernel"]
+    groups = [
+        launch_group(stages["train"], train_conv_cases(net_config)),
+        launch_group(stages["predict"], cases),
+    ]
+    return out, groups
+
+
+def merge_launches(rows: list, groups, seed: int) -> int:
+    """Adds each group's K1 launches to the row of its conv; a conv no row
+    holds yet is held against its plain version (``check_conv``, the
+    group's traced case of it) and added as a row.  Returns the launches
+    added."""
+    index = {(tuple(r["x"]), tuple(r["w"])): r for r in rows}
+    total = 0
+    for group in groups:
+        for key, n in group["by_conv"].items():
+            if key not in index:
+                case = next((c for c in group["cases"] if conv_key(c) == key), None)
+                if case is None:
+                    raise AssertionError(f"K1 launched at {key}, which no traced conv of its stage has")
+                (row,) = check_conv(seed, [case], fp32=False)
+                row["launches"] = 0
+                rows.append(row)
+                index[key] = row
+            index[key]["launches"] += n
+            total += n
+    return total
 
 
 def main(argv=None) -> int:
@@ -2015,6 +2509,23 @@ def main(argv=None) -> int:
     )
     for row in train_rows:  # the round trains at the same eleven shapes
         row["launches"] += by_train[(tuple(row["x"]), tuple(row["w"]))]
+
+    # the LSD setups: LSDs on the card, a 3d_mtlsd round scored by LSD
+    # errors, and the chain 3d_lsd -> 3d_affs_from_3d_lsd with the shipped
+    # refiner, both on a Voronoi sample of TRAIN_VOLUME
+    lsd = lsd_phase(args.seed)
+    emit({"phase": "lsd", "nvidia_smi": smi, **lsd})
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_lsd_") as work:
+        volumes = write_round_sample(work, TRAIN_VOLUME, args.seed, "cuda")
+        mtlsd, mtlsd_groups = mtlsd_round_phase(
+            work, volumes, args.seed, get_net_config("3d_mtlsd"), MTLSD_ITERATIONS, TIMED_STEPS
+        )
+        mtlsd["lsd_targets_share_of_transform"] = (
+            lsd["train_crop"]["ms"] / mtlsd["step"]["device_ms_by_part"]["transform"]
+        )
+        emit({"phase": "mtlsd_round", "nvidia_smi": smi, **mtlsd})
+        chain, chain_groups = chain_phase(work, volumes, args.seed, get_net_config("3d_lsd"), CHAIN_ITERATIONS)
+        emit({"phase": "chain", "nvidia_smi": smi, **chain})
     # the stream against the tiled path at its own xy tile, and the share of
     # voxels that differ from the zoo-tiled path, seams included
     vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
@@ -2031,7 +2542,13 @@ def main(argv=None) -> int:
         stream_conv + train["round"]["train_launches"]["conv3d.kernel"]
         + sum(round_line["conv_launches"].values())
     )
+    # the LSD phases' launches, on the rows of their convs (new convs, the
+    # refiner's, held against plain here)
+    conv_launches += merge_launches(conv_rows, mtlsd_groups + chain_groups, args.seed)
+    # their segments run K2 at the round's (64,512,512) stack
+    round_seed_rows[0]["launches"] += mtlsd["seed_launches"] + chain["seed_launches"]
     seed_launches += stream_seed + sum(round_line["seed_launches"].values())
+    seed_launches += mtlsd["seed_launches"] + chain["seed_launches"]
     seed_rows += round_seed_rows
     top_conv = max(conv_rows, key=lambda r: r["ms"] * r["launches"])
     top_seed = seed_rows[0]

@@ -216,9 +216,41 @@ def test_compute_aff_errors_exact_for_large_ids(tmp_path, ids):
     assert np.abs(JA.open_ds(want["error_map"]).to_ndarray() - err).max() > 0.1
 
 
-def test_compute_lsd_errors_raises():
-    with pytest.raises(NotImplementedError, match="A2"):
-        compute_lsd_errors(None, None, sigma=1.0, out_container="x")
+LSD_ATOL = 1e-5
+LSD_ERROR_CASES = {
+    # volume, cells, block: one block holding over 255 ids (two id chunks
+    # of 255); three overlapping blocks of fewer ids
+    "over_255_ids": ((4, 32, 32), 300, (16, 128, 128)),
+    "overlapping_blocks": ((6, 32, 24), 30, (6, 12, 24)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LSD_ERROR_CASES))
+def test_compute_lsd_errors_raises(tmp_path, case):
+    """The LSD error map on the CPU against the JAX package's, ids below
+    2^31 (fp32 blurs summed in another order): within 1e-5, the masks and
+    the stats equal."""
+    shape, cells, block = LSD_ERROR_CASES[case]
+    rng = np.random.default_rng(7)
+    ids = (rng.choice(2**31 - 2, cells, replace=False) + 1).astype(np.uint64)
+    seg = ids[_blobs(shape, cells, 7, base=0).astype(np.int64)]
+    seg[:, :, :2] = 0
+    pred = rng.integers(0, 256, (10, *shape)).astype(np.uint8)
+    seg_path = _write(tmp_path / "l.zarr/seg", seg)
+    pred_path = _write(tmp_path / "l.zarr/pred", pred)
+    kw = dict(sigma=2.0, block_shape=block)
+    got = compute_lsd_errors(A.open_ds(seg_path), A.open_ds(pred_path), out_container=str(tmp_path / "port.zarr"),
+                             device="cpu", **kw)
+    want = JE.compute_lsd_errors(JA.open_ds(seg_path), JA.open_ds(pred_path), out_container=str(tmp_path / "jax.zarr"),
+                                 **kw)
+    gm, wm = A.open_ds(got["error_map"]).to_ndarray(), JA.open_ds(want["error_map"]).to_ndarray()
+    np.testing.assert_allclose(gm, wm, rtol=0, atol=LSD_ATOL)
+    np.testing.assert_array_equal(A.open_ds(got["error_mask"]).to_ndarray(), JA.open_ds(want["error_mask"]).to_ndarray())
+    for k in ("nonzero_ratio", "total_voxels", "nonzero_voxels"):
+        assert got[k] == want[k], k
+    assert got["total_voxels"] == int(np.prod(shape)) and 0 < got["nonzero_ratio"] < 1
+    if case == "over_255_ids":
+        assert len(np.unique(seg)) > 256
 
 
 # -- threshold sweep and skeletons (tests/test_thresholds.py's RAG) ---------------

@@ -309,3 +309,49 @@ def test_compute_aff_errors_cuda_matches_cpu(cuda, tmp_path):
     assert not differs[~tie].any()
     assert abs(got["nonzero_voxels"] - want["nonzero_voxels"]) <= int(differs[tie].sum())
     assert got["total_voxels"] == want["total_voxels"] == seg.size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32", ["default", "on"])
+def test_lsds_and_lsd_errors_cuda_match_cpu(cuda, tmp_path, tf32):
+    """LSDs and the LSD error map on the card against their CPU route, with
+    TF32 left at its default or turned on for both cuBLAS and cuDNN: the LSD
+    route runs its blurs in fp32 itself (TF32 would move the descriptors by
+    up to ~7e-4), so both agree within 1e-5, and the caller's TF32 setting
+    is back after the call."""
+    from bootstrapper_torch.core.arrays import open_ds, prepare_ds
+    from bootstrapper_torch.eval import compute_lsd_errors
+    from bootstrapper_torch.ops.lsd import lsd_descriptors_downsampled
+
+    rng = np.random.default_rng(0)
+    seg = rng.integers(0, 70, (4, 13, 13)).repeat(2, 1).repeat(2, 2)[:, :26, :25].astype(np.int64)
+    pred = rng.integers(0, 256, (10, *seg.shape)).astype(np.uint8)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        if tf32 == "on":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        got = lsd_descriptors_downsampled(torch.from_numpy(seg).to(cuda), 80, (40, 4, 4), downsample=2, max_labels=64)
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+        want = lsd_descriptors_downsampled(seg, 80, (40, 4, 4), downsample=2, max_labels=64)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-5)
+        arrays = {}
+        for name, a in (("seg", seg.astype(np.uint64)), ("pred", pred)):
+            ds = prepare_ds(str(tmp_path / "l.zarr" / name), a.shape, (0, 0, 0), (40, 4, 4), a.dtype)
+            ds[ds.roi] = a
+            arrays[name] = ds
+        runs = {
+            dev: compute_lsd_errors(arrays["seg"], arrays["pred"], 80, str(tmp_path / f"{dev}.zarr"),
+                                    block_shape=(2, 16, 16), device=dev)
+            for dev in (cuda, "cpu")
+        }
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    got, want = runs[cuda], runs["cpu"]
+    gm, wm = open_ds(got["error_map"]).to_ndarray(), open_ds(want["error_map"]).to_ndarray()
+    np.testing.assert_allclose(gm, wm, rtol=0, atol=1e-5)
+    tie = (np.abs(wm - 0.1) <= 1e-5) | (np.abs(wm - 1.0) <= 1e-5)
+    differs = open_ds(got["error_mask"]).to_ndarray() != open_ds(want["error_mask"]).to_ndarray()
+    assert not differs[~tie].any()
+    assert abs(got["nonzero_voxels"] - want["nonzero_voxels"]) <= int(differs[tie].sum())
+    assert got["total_voxels"] == want["total_voxels"] == seg.size

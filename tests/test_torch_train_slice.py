@@ -142,18 +142,22 @@ def test_train_resume_predict(workdir):
         ({"fold_xy": True}, "fold_xy"),
         ({"mesh": True}, "mesh"),
         ({"net": {"input_shape": [196, 196], "output_shape": [104, 104]}}, "2D"),
-        ({"net": {"outputs": {"3d_lsd": {"dims": 10, "sigma": 80}}}}, "LSD"),
+        # a refiner with the zoo's LSD inputs: synthetic training (not ported)
+        ({"setup": "3d_affs_from_3d_lsd", "net": {"inputs": get_net_config("3d_affs_from_3d_lsd")["inputs"]}},
+         "synthetic"),
     ],
 )
 def test_unported_configs_raise(workdir, change, match):
     cfg = tomlio.load(str(workdir / "train.toml"))["train"]
+    setup = workdir / "setup" / "3d_affs"
     if "setup" in change:
         new = workdir / "setup" / change["setup"]
         new.mkdir()
-        (new / "net_config.json").write_text((workdir / "setup" / "3d_affs" / "net_config.json").read_text())
+        (new / "net_config.json").write_text((setup / "net_config.json").read_text())
         cfg["setup_dir"] = str(new)
+        setup = new
     if "net" in change:
-        path = workdir / "setup" / "3d_affs" / "net_config.json"
+        path = setup / "net_config.json"
         path.write_text(json.dumps({**json.loads(path.read_text()), **change["net"]}))
     for k, v in change.items():
         if k not in ("setup", "net"):

@@ -277,8 +277,44 @@ def test_pipeline_end_to_end_on_cpu(sample_paths):
 
 
 def test_unported_setups_raise():
+    """2D setups still raise; LSD outputs (3d_lsd, 3d_mtlsd) pass."""
     nc = _net_config()
     with pytest.raises(NotImplementedError, match="2D"):
         T.SetupSpec({**nc, "input_shape": [40, 40]}, VOXEL).check_ported()
-    with pytest.raises(NotImplementedError, match="LSD"):
-        T.SetupSpec({**nc, "outputs": {"lsd": {"dims": 10, "sigma": 80}}}, VOXEL).check_ported()
+    T.SetupSpec({**nc, "outputs": {"lsd": {"dims": 10, "sigma": 80}}}, VOXEL).check_ported()
+    T.SetupSpec(_mtlsd_net_config(), VOXEL).check_ported()
+
+
+def _mtlsd_net_config(tile=(8, 40, 40), out=(4, 20, 20)):
+    nc = get_net_config("3d_mtlsd")
+    nc.update(input_shape=list(tile), output_shape=list(out))
+    return nc
+
+
+@pytest.mark.parametrize("seed", [0, 3, 6])  # 3 and 6 deform
+def test_mtlsd_transform_matches_jax_given_its_draws(seed):
+    """Both heads of 3d_mtlsd from the JAX transform's draws: the LSD
+    targets (fp32 blurs summed in another order) within 1e-5, their
+    weights (the mask) and the affinity head exactly, unless a deform
+    sample lies on a half voxel."""
+    nc = _mtlsd_net_config()
+    spec_p, spec_j = T.SetupSpec(nc, VOXEL), JT.SetupSpec(nc, VOXEL)
+    shape = spec_p.input_tile
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, shape, dtype=np.uint8)
+    labels = S.fold_ids_u32(_voronoi(shape, 25, seed))
+    mask = (rng.random(shape) > 0.05).astype(np.uint8)
+    mask[:, :4] = 0
+    key = jax.random.PRNGKey(seed)
+    _, want_t, want_w = JT.make_device_transform(spec_j)(key, jnp.asarray(raw), jnp.asarray(labels), jnp.asarray(mask))
+    draws = jax_transform_draws(key, spec_p)
+    b = T.upload({"raw": raw[None], "labels": labels[None], "mask": mask[None]}, "cpu")
+    _, got_t, got_w = T.apply_transform(spec_p, draws, b["raw"][0], b["labels"][0], b["mask"][0])
+    assert sorted(got_t) == sorted(want_t) == ["3d_affs", "3d_lsds"]
+    assert got_t["3d_lsds"].shape == got_w["3d_lsds"].shape == (*spec_p.output_tile, 10)
+    lsd_close = np.abs(got_t["3d_lsds"].numpy() - np.asarray(want_t["3d_lsds"])).max() <= 1e-5
+    exact = all(np.array_equal(got[k].numpy(), np.asarray(want[k]))
+                for got, want in ((got_t, want_t), (got_w, want_w)) for k in ("3d_affs",))
+    exact &= np.array_equal(got_w["3d_lsds"].numpy(), np.asarray(want_w["3d_lsds"]))
+    assert (exact and lsd_close) or ("deform" in draws and _deform_ties(key, spec_p))
+    assert float(got_t["3d_lsds"].max()) > 0
