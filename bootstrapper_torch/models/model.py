@@ -2,11 +2,18 @@
 instantiated from a net config dict (the contents of a
 ``net_config.json``), as in the JAX package's ``models/model.py``.
 
-``Model`` is an ``nn.Module``: ``model(x) -> {name: (N, D, H, W, C)
+``Model`` is an ``nn.Module``: ``model(x) -> {name: (N, *spatial, C)
 fp32}`` for channels-last input ``x``; ``forward_stream`` is one step of
-overlap-save z streaming (``models/zstream.py``).  ``multi_output_loss``
-is the training loss.  Weights come from
-JAX-layout params through ``models/weights.py``.  3D setups only so far.
+overlap-save z streaming (``models/zstream.py``, 3D setups).
+``multi_output_loss`` is the training loss.  Weights come from
+JAX-layout params through ``models/weights.py``.
+
+2D setups take ``adj_slices`` neighbouring sections as channels: an
+``(N, adj, H, W, C)`` input is folded into ``(N, H, W, adj * C)`` in the
+JAX package's order (channel ``d * C + c``), and the net runs lifted to a
+unit z axis (``unet.lift_2d_config``), heads included.  Outputs are
+``(N, H', W', C)``, or ``(N, 1, H', W', C)`` with ``stack_infer`` (the
+predictor's sections stacked in z).
 """
 
 from __future__ import annotations
@@ -47,17 +54,16 @@ def unet_config(net_config: dict) -> UNetConfig:
 
 
 class Model(nn.Module):
-    def __init__(self, net_config: dict, compute_dtype=torch.bfloat16):
+    def __init__(self, net_config: dict, compute_dtype=torch.bfloat16, stack_infer: bool = False):
         super().__init__()
         self.net_config = net_config
         self.compute_dtype = compute_dtype
-        cfg = unet_config(net_config)
-        self.unet = UNet(cfg)
+        self.stack_infer = stack_infer
+        self._unet_config = unet_config(net_config)
+        self.unet = UNet(self._unet_config)
         self.heads = nn.ModuleDict(
             {
-                name: ConvPass(
-                    cfg.out_channels, head_dims(out), [(1,) * cfg.dims], "sigmoid"
-                )
+                name: ConvPass(self.unet.cfg.out_channels, head_dims(out), [(1, 1, 1)], "sigmoid")
                 for name, out in net_config["outputs"].items()
             }
         )
@@ -68,7 +74,9 @@ class Model(nn.Module):
 
     @property
     def unet_config(self) -> UNetConfig:
-        return self.unet.cfg
+        """The net's config as the JAX package states it (2D for a 2D
+        setup); ``self.unet.cfg`` is the one the convs run."""
+        return self._unet_config
 
     @property
     def dims(self) -> int:
@@ -79,8 +87,13 @@ class Model(nn.Module):
         return tuple(self.net_config["input_shape"])
 
     def forward(self, x) -> dict:
-        """x: (N, D, H, W, C).  Returns ``{output name: fp32 (N, D', H',
-        W', C_head)}``; convolutions run in ``compute_dtype``."""
+        """x: (N, *spatial, C), or (N, adj, H, W, C) for a 2D setup.
+        Returns ``{output name: fp32 (N, *spatial', C_head)}`` (a 2D setup
+        with ``stack_infer``: (N, 1, H', W', C_head)); convolutions run in
+        ``compute_dtype``."""
+        if self.dims == 2 and x.dim() == 5:
+            n, d, h, w, c = x.shape
+            x = torch.movedim(x, 1, 3).reshape(n, h, w, d * c)
         spatial = tuple(x.shape[1:-1])
         try:
             compute_output_shape(self.unet_config, spatial)
@@ -89,8 +102,13 @@ class Model(nn.Module):
                 f"input spatial shape {spatial} is invalid for this setup "
                 f"({e}); the standard tile is {self.input_shape}"
             ) from None
+        if self.dims == 2:
+            x = x[:, None]  # the lifted net's unit z axis
         z = self.unet(x.to(self.compute_dtype))
-        return {name: head(z).float() for name, head in self.heads.items()}
+        outs = {name: head(z).float() for name, head in self.heads.items()}
+        if self.dims == 2 and not self.stack_infer:
+            outs = {name: y[:, 0] for name, y in outs.items()}
+        return outs
 
     def forward_stream(self, x, state):
         """One overlap-save z-streaming step (the JAX package's

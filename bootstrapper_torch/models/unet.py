@@ -1,9 +1,16 @@
-"""Residual valid-convolution U-Net (3D) as ``nn.Module``s.
+"""Residual valid-convolution U-Net as ``nn.Module``s.
 
 The plain graph of the JAX package's ``models/unet.py:unet_apply`` (the
 path it takes with no folded levels), in the same channels-last layout:
 activations are ``(N, D, H, W, C)`` and conv weights are DHWIO, so the
 JAX params carry over unchanged (``models/weights.py``).
+
+A 2D net runs as a 3D net with a unit z axis (``lift_2d_config``, the
+JAX package's ``_lift_2d_config``): kernels ``(k1, k2)`` become
+``(1, k1, k2)``, factors ``(a, b)`` become ``(1, a, b)``, so its input is
+``(N, 1, H, W, C)`` and its conv weights carry a unit z axis.  The convs
+are the same; the trilinear upsample with a z factor of 1 equals the 2D
+linear resize.
 
 - ConvPass: valid convs with activations between, plus a 1x1 projection
   of the input, centre-cropped and added, then the final activation.
@@ -83,6 +90,16 @@ class UNetConfig:
             product = list(f) if product is None else [a * b for a, b in zip(f, product)]
             factors.append(tuple(product))
         return tuple(factors[::-1])
+
+
+def lift_2d_config(cfg: UNetConfig) -> UNetConfig:
+    """A 2D config as the 3D config of the same net with a unit z axis."""
+    return dataclasses.replace(
+        cfg,
+        downsample_factors=tuple((1, *f) for f in cfg.downsample_factors),
+        kernel_size_down=tuple(tuple((1, *k) for k in lvl) for lvl in cfg.kernel_size_down),
+        kernel_size_up=tuple(tuple((1, *k) for k in lvl) for lvl in cfg.kernel_size_up),
+    )
 
 
 # in place, on tensors this module has just made: a conv output keeps the
@@ -227,12 +244,15 @@ def crop_to_factor(x, factor, kernel_sizes):
 
 
 class UNet(nn.Module):
-    """ReLU U-Net with constant (trilinear) upsampling and one decoder."""
+    """ReLU U-Net with constant (trilinear) upsampling and one decoder.  A
+    2D config is lifted (``lift_2d_config``): ``cfg`` is then the 3D one."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.dims != 3:
-            raise NotImplementedError("the port runs 3D U-Nets only so far")
+        if cfg.dims == 2:
+            cfg = lift_2d_config(cfg)
+        elif cfg.dims != 3:
+            raise ValueError(f"a U-Net of {cfg.dims} spatial dims; 2 or 3 are built")
         self.cfg = cfg
         nf, inc, n = cfg.num_fmaps, cfg.fmap_inc_factor, cfg.num_levels
         self.l_conv = nn.ModuleList(

@@ -7,6 +7,11 @@ DHWIO, biases), saved as ``model_checkpoint_<step>`` npz files with
 ``unet.l_conv.0.layers.0.w`` and ``head_<name>/...`` ->
 ``heads.<name>....``.  Folded-weight caches (``_pf*`` entries) and the
 empty upsample entries of constant-upsample nets carry no parameters.
+A 2D setup's JAX conv weights are HWIO; the port's lifted net
+(``unet.lift_2d_config``) keeps them with a unit z axis, inserted on the
+way in and squeezed out on the way out (``to_port_layout`` /
+``to_jax_layout``), so that either package reads the other's 2D
+checkpoints.
 
 The optimizer state carries across too (``opt_leaves_to_jax`` /
 ``opt_leaves_from_jax``): the JAX trainer's checkpoint holds optax Adam's
@@ -48,10 +53,23 @@ def _flatten(tree, prefix=""):
     return out
 
 
+def to_port_layout(path: str, arr):
+    """A JAX leaf in the port's layout: a 2D conv weight (HWIO, 4D) gains
+    the lifted net's unit z axis."""
+    return arr[None] if path.rsplit("/", 1)[-1] == "w" and arr.ndim == 4 else arr
+
+
+def to_jax_layout(model, path: str, arr):
+    """A leaf of ``model`` in the JAX layout: a 2D setup's conv weights
+    (and their Adam moments) lose the unit z axis."""
+    return arr[0] if model.dims == 2 and path.rsplit("/", 1)[-1] == "w" else arr
+
+
 def params_from_jax(params) -> dict:
     """JAX params pytree (numpy leaves) -> the port's ``state_dict``."""
     state = {}
     for path, arr in _flatten(params).items():
+        arr = to_port_layout(path, arr)
         if path.startswith("head_"):
             path = "heads/" + path[len("head_") :]
         state[path.replace("/", ".")] = torch.tensor(arr, dtype=torch.float32)
@@ -211,24 +229,29 @@ def params_in_leaf_order(model) -> list:
 
 
 def params_to_jax(model) -> dict:
-    """``model``'s parameters as ``{JAX path: numpy array}``."""
-    return {path: p.detach().cpu().numpy() for path, p in params_in_leaf_order(model)}
+    """``model``'s parameters as ``{JAX path: numpy array}`` in the JAX
+    layout."""
+    return {
+        path: to_jax_layout(model, path, p.detach().cpu().numpy())
+        for path, p in params_in_leaf_order(model)
+    }
 
 
 def opt_leaves_to_jax(model, optimizer) -> list:
     """torch Adam's state as optax Adam's leaves: ``[count (int32), mu...,
     nu...]``; a parameter not yet stepped has zero moments and count 0."""
     mus, nus, counts = [], [], set()
-    for _, p in params_in_leaf_order(model):
+    for path, p in params_in_leaf_order(model):
         st = optimizer.state.get(p)
         if st:
-            mus.append(st["exp_avg"].detach().float().cpu().numpy())
-            nus.append(st["exp_avg_sq"].detach().float().cpu().numpy())
+            mu = st["exp_avg"].detach().float().cpu().numpy()
+            nu = st["exp_avg_sq"].detach().float().cpu().numpy()
             counts.add(int(st["step"]))
         else:
-            mus.append(np.zeros(tuple(p.shape), np.float32))
-            nus.append(np.zeros(tuple(p.shape), np.float32))
+            mu = nu = np.zeros(tuple(p.shape), np.float32)
             counts.add(0)
+        mus.append(to_jax_layout(model, path, mu))
+        nus.append(to_jax_layout(model, path, nu))
     if len(counts) != 1:
         raise ValueError(f"parameters were stepped unequally often: {sorted(counts)}")
     return [np.asarray(counts.pop(), np.int32), *mus, *nus]
@@ -243,7 +266,8 @@ def opt_leaves_from_jax(model, optimizer, leaves) -> None:
         raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters, want {1 + 2 * n}")
     count = int(np.asarray(leaves[0]))
     for i, (path, p) in enumerate(params):
-        mu, nu = np.asarray(leaves[1 + i]), np.asarray(leaves[1 + n + i])
+        mu = to_port_layout(path, np.asarray(leaves[1 + i]))
+        nu = to_port_layout(path, np.asarray(leaves[1 + n + i]))
         if mu.shape != tuple(p.shape) or nu.shape != tuple(p.shape):
             raise ValueError(f"{path}: moments {mu.shape}/{nu.shape}, parameter {tuple(p.shape)}")
         optimizer.state[p] = {

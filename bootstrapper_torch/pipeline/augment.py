@@ -1,5 +1,6 @@
 """Device-side augmentations on tensors: the augments of the JAX package's
-``pipeline/augment.py`` that the 3D training transform reaches.
+``pipeline/augment.py`` that the training transform reaches (the
+per-section shift only for 2D setups).
 
 Each augment is a *draw* and an *apply*:
 
@@ -233,6 +234,39 @@ def elastic_deform(
     dims = len(shape)
     draws = draw_flow(gen, shape, tuple(control_spacing[-dims:]), rotation_max, scale_range)
     return apply_elastic(arrays, interp, apply_flow(shape, tuple(jitter_sigma[-dims:]), **draws))
+
+
+def draw_shift(gen: Generators, n_sections: int, max_shift: int = 4, prob: float = 0.05) -> dict:
+    """Per z section: a coin of ``prob`` and, where it falls, a (y, x) shift
+    uniform in ``[-max_shift, max_shift]``; (0, 0) elsewhere."""
+    hit = [gen.coin(prob) for _ in range(n_sections)]
+    shifts = torch.randint(-max_shift, max_shift + 1, (n_sections, 2), generator=gen.host).tolist()
+    return {"shifts": [tuple(s) if h else (0, 0) for h, s in zip(hit, shifts)]}
+
+
+def apply_shift(arrays: dict, shifts) -> dict:
+    """Roll each z section of every array by its (y, x) shift, wrapping
+    around as ``jnp.roll`` does (no padding); only the shifted sections are
+    touched."""
+
+    def apply(x):
+        moved = [(z, s) for z, s in enumerate(shifts) if any(s)]
+        if not moved:
+            return x
+        out = x.clone()
+        for z, s in moved:
+            out[z] = torch.roll(x[z], tuple(s), dims=(0, 1))
+        return out
+
+    return {k: apply(v) for k, v in arrays.items()}
+
+
+def shift_augment(gen: Generators, arrays: dict, interp=None, max_shift: int = 4, prob: float = 0.05):
+    """Per-section random xy shifts, "slip" (ShiftAugment): each section
+    shifts with probability ``prob``.  ``interp`` is taken for the JAX
+    signature; a roll moves whole voxels, so it needs none."""
+    n = next(iter(arrays.values())).shape[0]
+    return apply_shift(arrays, **draw_shift(gen, n, max_shift, prob))
 
 
 # ---------------------------------------------------------------------------

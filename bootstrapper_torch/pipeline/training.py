@@ -1,12 +1,12 @@
 """Training pipelines for real samples: host sampling, then one device
-transform per sample (the JAX package's ``pipeline/training.py`` for 3D
-setups).
+transform per sample (the JAX package's ``pipeline/training.py``).
 
 - The host draws random crops from Zarr (``train/sampler.py``) with labels
   read at input size, so that geometric augments move raw and labels
   alike, and ships raw bytes, uint32 ids and the mask.
 - The device transform does the rest on the card: renumbering,
-  mirror/transpose, the gated elastic deform, the intensity chain,
+  mirror/transpose, the gated elastic deform, the gated per-section
+  shift of a 2D setup's ``adj_slices`` sections, the intensity chain,
   section defects, boundary growth, affinity targets, their mask and
   balance weights, LSD targets (``ops/lsd.py``) with the mask as their
   weights, and the [-1, 1] input scaling.
@@ -20,9 +20,11 @@ which gives the same result.  The batch is a loop over samples in place
 of ``vmap``.
 
 Semantics kept from the JAX package: 3D setups train at batch 1 and
-learning rate 0.5e-4; deform, noise, intensity, gamma, impulse and smooth
-each apply with probability 0.5; defects on multi-slice inputs.  2D
-setups (``adj_slices``, ``shift_augment``) are not ported and raise.
+learning rate 0.5e-4; 2D setups at batch 10 and 1e-4, on ``adj_slices``
+sections with targets of the centre one (neighbourhoods given a z of 0,
+LSDs the 2D ones of the centre section), squeezed to 2D; deform, the
+shift (2D), noise, intensity, gamma, impulse and smooth each apply with
+probability 0.5; defects on multi-slice inputs.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from .augment import (
     apply_impulse,
     apply_intensity,
     apply_noise,
+    apply_shift,
     apply_simple,
     apply_smooth,
     draw_defect,
@@ -54,6 +57,7 @@ from .augment import (
     draw_impulse,
     draw_intensity,
     draw_noise,
+    draw_shift,
     draw_simple,
     draw_smooth,
 )
@@ -68,6 +72,8 @@ CONTROL_SPACING = (8, 32, 32)
 JITTER_SIGMA = (0.0, 2.0, 2.0)
 ROTATION_MAX = np.pi / 2
 SCALE_RANGE = (0.9, 1.1)
+MAX_SHIFT = 3  # the 2D setups' per-section shift
+SHIFT_PROB = 0.2
 GATE_P = 0.5
 
 
@@ -114,11 +120,6 @@ class SetupSpec:
                 out["sigma"] = (0.01, out["sigma"], out["sigma"])
         return out
 
-    def check_ported(self):
-        """Raise ``NotImplementedError`` for what the port cannot train yet."""
-        if self.is_2d or self.adj_slices > 1:
-            raise NotImplementedError("2D setups (adj_slices, shift_augment) are not ported yet")
-
 
 def device_renumber(labels, max_labels: int = MAX_LABELS):
     """Dense relabel to 0..K-1 on the device (gp Renumber): sorted-unique
@@ -156,6 +157,8 @@ def draw_transform(gen: Generators, spec: SetupSpec) -> dict:
     draws = {"simple": draw_simple(gen, len(MIRROR_AXES))}
     if gen.coin(GATE_P):
         draws["deform"] = draw_flow(gen, shape, CONTROL_SPACING, ROTATION_MAX, SCALE_RANGE)
+    if spec.adj_slices > 1 and gen.coin(GATE_P):
+        draws["shift"] = draw_shift(gen, z, MAX_SHIFT, SHIFT_PROB)
     if gen.coin(GATE_P):
         draws["noise"] = draw_noise(gen, shape, 0.05)
     if gen.coin(GATE_P):
@@ -194,6 +197,8 @@ def apply_transform(
     if "deform" in draws:
         flow = apply_flow(tuple(raw.shape), JITTER_SIGMA, **draws["deform"])
         arrays = apply_elastic(arrays, INTERP, flow)
+    if "shift" in draws:
+        arrays = apply_shift(arrays, **draws["shift"])
     raw, labels, mask = arrays["raw"], arrays["labels"], arrays["mask"]
 
     if "noise" in draws:
@@ -227,14 +232,24 @@ def apply_transform(
             t = seg_to_affs(lab, out["neighborhood"])
             m = affs_mask(mask_out, out["neighborhood"])
             w = balance_weights(t, m, slab_axis=0)
+        elif spec.is_2d:  # LSD head: the centre section's 2D LSDs, z put back
+            t = lsd_descriptors_downsampled(
+                labels_out[0], sigma=spec.net_config["outputs"][name]["sigma"],
+                voxel_size=spec.voxel_size[1:], downsample=out.get("downsample", 1),
+                max_labels=MAX_LABELS,
+            )[:, None]
+            w = mask_out[None].expand(t.shape)
         else:  # LSD head
             t = lsd_descriptors_downsampled(
                 labels_out, sigma=out["sigma"], voxel_size=spec.voxel_size,
                 downsample=out.get("downsample", 1), max_labels=MAX_LABELS,
             )
             w = mask_out[None].expand(t.shape)
-        targets[name] = torch.movedim(t, 0, -1).to(torch.float32)
-        weights[name] = torch.movedim(w, 0, -1).to(torch.float32)
+        t, w = torch.movedim(t, 0, -1), torch.movedim(w, 0, -1)
+        if spec.is_2d:  # (1, h, w, C) -> (h, w, C)
+            t, w = t[0], w[0]
+        targets[name] = t.to(torch.float32)
+        weights[name] = w.to(torch.float32)
     return (raw * 2.0 - 1.0)[..., None], targets, weights
 
 
@@ -242,7 +257,6 @@ def make_device_transform(spec: SetupSpec, prob_artifact: float = 0.0):
     """``(gen, raw, labels, mask[, artifact, artifact_mask])`` unbatched ->
     ``(input, targets, weights)``: ``apply_transform`` of a fresh
     ``draw_transform``."""
-    spec.check_ported()
 
     def transform(gen, raw, labels, mask, artifact=None, artifact_mask=None):
         return apply_transform(
@@ -318,7 +332,6 @@ class TrainingPipeline:
         device="cuda",
     ):
         self.spec = SetupSpec(net_config, tuple(voxel_size))
-        self.spec.check_ported()
         self.batch_size = batch_size or self.spec.batch_size
         self.device = torch.device(device)
         vs = Coordinate(voxel_size)

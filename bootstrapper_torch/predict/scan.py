@@ -14,7 +14,10 @@ package's ``predict/scan.py``).
 
 The tile is the net config's ``input_shape + shape_increase``: the JAX
 package's ``auto_shape_increase`` encodes a TPU v5e memory model and is
-not ported.  3D setups only so far.
+not ported.  A 2D setup's tile is ``adj_slices`` sections in and one out,
+``(adj, H, W) -> (1, H', W')``, and its tiles run ``batch_tiles`` at a
+time (32 by default, as in the JAX package; 3D setups 1): a short last
+batch is padded with its last tile, whose extra outputs are discarded.
 """
 
 from __future__ import annotations
@@ -96,21 +99,21 @@ def tile_rois(total: Roi, tile_size: Coordinate, with_fresh: bool = False) -> li
 
 
 class Predictor:
-    """Tiled inference for one 3D setup on one device.
+    """Tiled, batched inference for one setup on one device.
 
     ``model`` holds the weights (``models.weights.load_params``); it is
-    moved to ``device`` and cast to ``compute_dtype`` here."""
+    moved to ``device`` and cast to ``compute_dtype`` here, and a 2D setup
+    stacks its sections in z (``stack_infer``)."""
 
     def __init__(
         self,
         model: Model,
         voxel_size,
         shape_increase: Optional[Sequence[int]] = None,
+        batch_tiles: Optional[int] = None,
         device=None,
         compute_dtype=torch.bfloat16,
     ):
-        if model.dims != 3:
-            raise NotImplementedError("the port predicts with 3D setups only so far")
         self.device = resolve_device(device)
         self.voxel_size = Coordinate(voxel_size)
         nc = model.net_config
@@ -119,19 +122,29 @@ class Predictor:
             if shape_increase is not None
             else list(nc.get("shape_increase", [0] * len(nc["input_shape"])))
         )
-        self.input_tile = tuple(a + b for a, b in zip(nc["input_shape"], inc))
-        self.output_tile = tuple(a + b for a, b in zip(nc["output_shape"], inc))
+        in_shape = [a + b for a, b in zip(nc["input_shape"], inc)]
+        out_shape = [a + b for a, b in zip(nc["output_shape"], inc)]
+        if model.dims == 2:
+            in_shape = [nc.get("adj_slices", 1), *in_shape]
+            out_shape = [1, *out_shape]
+        self.input_tile = tuple(in_shape)
+        self.output_tile = tuple(out_shape)
+        # the JAX package's default: a 2D section is small, so sections
+        # batch (its knee on a TPU v5e was 32); a 3D tile runs alone
+        self.batch_tiles = batch_tiles or (32 if model.dims == 2 else 1)
         self.input_size = Coordinate(self.input_tile) * self.voxel_size
         self.output_size = Coordinate(self.output_tile) * self.voxel_size
         self.context = (self.input_size - self.output_size) / 2
         model.compute_dtype = compute_dtype
+        model.stack_infer = model.dims == 2
         self.model = model.to(device=self.device, dtype=compute_dtype).eval()
         self._is_image = "raw" in nc.get("inputs", {"raw": {}})
         self._io = DeviceIO(self.device) if self.device.type == "cuda" else None
 
     @torch.no_grad()
     def forward(self, x) -> dict:
-        """A batch of input tiles on the device -> uint8 outputs per head."""
+        """A batch of input tiles on the device (a 2D setup's: ``(B, adj, H,
+        W, C)``) -> uint8 outputs per head, ``(B, *output_tile, C)``."""
         if x.dtype == torch.uint8:
             x = x.to(torch.float32) / 255.0
             if self._is_image:
@@ -154,19 +167,25 @@ class Predictor:
         inputs = raw if isinstance(raw, (list, tuple)) else [raw]
         total = roi if roi is not None else next(iter(outputs.values())).roi
         tiles = tile_rois(total, self.output_size)
+        B = self.batch_tiles
         t0 = time.perf_counter()
         read_tile = make_tile_reader(inputs, self.context, self._is_image)
         writer = TileWriter(outputs, self.model.net_config["outputs"], self.voxel_size)
 
-        def drain(tile, handle):
+        def read_batch(batch):
+            arrs = [read_tile(t) for t in batch]
+            arrs += arrs[-1:] * (B - len(arrs))  # pad; the extra outputs are not written
+            return np.stack(arrs)
+
+        def drain(batch, handle):
             event, outs = handle
             if event is not None:
                 event.synchronize()
-            writer.drain_batch([tile], {k: v.cpu().numpy() for k, v in outs.items()})
+            writer.drain_batch(batch, {k: v.cpu().numpy() for k, v in outs.items()})
 
         run_pipelined(
-            tiles,
-            read=lambda t: read_tile(t)[None],
+            [tiles[i : i + B] for i in range(0, len(tiles), B)],
+            read=read_batch,
             dispatch=self._dispatch,
             drain=drain,
         )

@@ -10,9 +10,10 @@ declared inputs by name), which stay in [0, 1] where raw is scaled to
 [-1, 1].
 
 As in the JAX package, a volume deeper than one tiled z pass is streamed
-in z (``predict/zstream.py``) when the net never pools z; other volumes
-are tiled (``predict/scan.py``).  ``BS_ZSTREAM=0`` in the environment
-opts out of streaming.
+in z (``predict/zstream.py``) when the net is 3D and never pools z; other
+volumes, and every 2D link, are tiled (``predict/scan.py``), a 2D link's
+sections ``batch_tiles`` at a time.  ``BS_ZSTREAM=0`` in the environment,
+or an explicit ``batch_tiles``, opts out of streaming.
 """
 
 from __future__ import annotations
@@ -149,12 +150,16 @@ def run_prediction(
     setup_id: Optional[str] = None,
     device=None,
     compute_dtype=torch.bfloat16,
+    batch_tiles: Optional[int] = None,
 ) -> dict:
     """Run the prediction chain of every volume of the config; returns
     per-link stats (tiles, seconds, output voxels/s; a stream adds its
     columns, steps per column and plan).  ``setup_id`` restricts to the
     chain links whose setup name contains it, each reading its configured
-    ``input_datasets`` from disk (re-running one setup of a chain)."""
+    ``input_datasets`` from disk (re-running one setup of a chain).
+    ``batch_tiles`` sets the tiled predictor's batch (default 32 tiles
+    for a 2D setup, 1 for a 3D one) and, as in the JAX package, tiles
+    every link instead of streaming it."""
     cfg = tomlio.load(config_file)
     cfg = cfg.get("predict", cfg)
     results = {}
@@ -198,9 +203,16 @@ def run_prediction(
             out_roi = in_roi if roi is None else roi
             out_vox = tuple(s // v for s, v in zip(out_roi.shape, raw.voxel_size))
             fitted = shrink_shape_increase(model, out_vox)
-            predictor = _maybe_zstream(
-                model, raw, out_vox, model.net_config["output_shape"][0] + fitted[0], device, compute_dtype,
-            ) or Predictor(model, raw.voxel_size, shape_increase=fitted, device=device, compute_dtype=compute_dtype)
+            predictor = None
+            if batch_tiles is None:
+                predictor = _maybe_zstream(
+                    model, raw, out_vox, model.net_config["output_shape"][0] + fitted[0], device, compute_dtype,
+                )
+            if predictor is None:
+                predictor = Predictor(
+                    model, raw.voxel_size, shape_increase=fitted, batch_tiles=batch_tiles, device=device,
+                    compute_dtype=compute_dtype,
+                )
             if any(s < m for s, m in zip(out_roi.shape, predictor.output_size)):
                 raise ValueError(f"roi {out_roi} smaller than one output tile {predictor.output_size}")
             outputs = prepare_prediction_outputs(

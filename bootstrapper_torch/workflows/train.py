@@ -10,11 +10,16 @@ the operational surface: ``model_checkpoint_{iter}`` files in the JAX
 layout, auto-resume from the latest one, ``log/loss.jsonl`` every 10
 iterations, snapshot Zarrs, a host RSS cap and a stall watchdog.
 
-Not ported, and raised as ``NotImplementedError`` where a config asks for
-them: synthetic training (``_from_`` setups, or no ``samples``), TPU
-folding (``fold_xy``), the device ``mesh``, 2D setups and LSD targets.
-The JAX package's ``BS_INT8`` guard has nothing to guard here: the port
-has no int8 path, so training runs in ``compute_dtype`` either way.
+It trains the 3D and 2D image setups (affinities, LSDs or both; a 2D
+setup at batch 10 by default).  Not ported, and raised as
+``NotImplementedError`` where a config asks for them: synthetic training
+(``_from_`` setups, or no ``samples``), TPU folding (``fold_xy = true``)
+and the device ``mesh``.  The JAX package's fold probe, which turns
+folding on for a batch of 8 or more where a TPU compile of it passes, is
+TPU machinery: here a config without ``fold_xy`` trains unfolded at any
+batch, with no probe.  Its ``BS_INT8`` guard has nothing to guard here:
+the port has no int8 path, so training runs in ``compute_dtype`` either
+way.
 """
 
 from __future__ import annotations

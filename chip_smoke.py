@@ -96,7 +96,23 @@ Phases, each printing one JSON line:
     the refiner's bf16 forward against the CPU fp32 one on the 3d_lsd
     link's outputs, voxels/s per link.  Launch counts as in (r); the
     refiner's K1 convs are held against the plain version and added to the
-    ``kernels`` line.
+    ``kernels`` line;
+(2) the 2D setups: ``chain2d``, the reference's flagship round
+    ``2d_mtlsd -> 3d_affs_from_2d_mtlsd`` on the same sample, from
+    ``make_round_configs`` with the sample's labels as GT: the full-width
+    2D net (run as a unit-z 3D net, ``adj_slices`` sections as channels)
+    in bf16 on the card against fp32 on the CPU, its bf16 gradients at
+    batch 10 against fp32; ``run_training`` (CHAIN2D_ITERATIONS batches of
+    10), ``run_prediction`` (the 2D link tiled 32 sections a batch, the
+    shipped refiner streamed), ``run_segmentation`` (ws),
+    ``run_evaluation`` (VOI), ``run_filter``; then the GT's own 2D heads
+    written over the 2D link's outputs and the refiner link, segment,
+    evaluate and filter again (``gt_2d``: its segmentation may not be
+    empty); the 2D link's Mvox/s at BATCH_TILES_SWEEP sections a batch;
+    the steady train step.  Every K1 shape it launches (the 2D net's at
+    batches of 10, 8, 32 and 64 sections, the refiner's 243-channel warm
+    and steady shapes) is traced on the ``meta`` device, held against the
+    plain version and counted into the ``kernels`` line.
 
 Then the card's name and power limit as nvidia-smi reports them, the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -187,6 +203,12 @@ SANITY_MAX_MASKED = 0.01
 MTLSD_ITERATIONS = 40
 CHAIN_ITERATIONS = 20
 
+# the 2D chain (``chain2d``): 2d_mtlsd's iterations (batches of 10), and the
+# batches of sections its link's throughput is measured at (the JAX
+# package's default, 32, was its knee on a TPU)
+CHAIN2D_ITERATIONS = 20
+BATCH_TILES_SWEEP = (32, 8, 64)
+
 
 # the streamed main path's volume: deeper than 96 slices and, at the plan's
 # 64-slice step after a 4-slice warm step, two slices short of the last
@@ -241,11 +263,12 @@ def cuda_time_ms(fn, iters: int = 10, queued: bool = False) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters: int = 10) -> float:
+def device_time_ms(fn, iters: int = 10, required: bool = True):
     """Mean time the device spends in the kernels and copies of ``fn``, from
     ``torch.profiler`` device events over ``iters`` calls after one
-    warm-up call; the host's time to enqueue them is not in it.  Raises
-    where the profiler saw no device event in three tries."""
+    warm-up call; the host's time to enqueue them is not in it.  Where the
+    profiler saw no device event in three tries: raises, or (not
+    ``required``) gives None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -263,6 +286,8 @@ def device_time_ms(fn, iters: int = 10) -> float:
         )
         if us:
             return us / 1e3 / iters
+    if not required:
+        return None
     raise RuntimeError("torch.profiler recorded no device event in three traces")
 
 
@@ -422,7 +447,9 @@ def check_conv(seed: int, cases=None, fp32: bool = True) -> list:
         # CUDA events around queued launches (profiler device events read
         # up to half the time of the largest convs, under their bound)
         ms = cuda_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed), iters=10, queued=True)
-        profiler_ms = device_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed))
+        # a cross-check of ``ms``; None where the profiler's traces came back
+        # without device events, as one now and then does
+        profiler_ms = device_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed), required=False)
         plain_ms = cuda_time_ms(lambda: C.conv3d_plain(x, w, b), iters=2, queued=True)
         library_ms = cuda_time_ms(lambda: F.conv3d(xp, wp, b), iters=10, queued=True)
         flops, nbytes = conv_work(x, w, b, got)
@@ -798,12 +825,16 @@ def check_reference(net_config: dict, params, affs: np.ndarray, seed: int) -> di
 
 
 def tile_flops(net_config: dict, input_shape) -> dict:
-    """Operations of one tile forward, by conv route, from the U-Net's
-    shape algebra (2 per multiply-add; residuals on the cropped inputs)."""
+    """Operations of one tile forward (a 2D net's: one section's), by conv
+    route, from the U-Net's shape algebra (2 per multiply-add; residuals on
+    the cropped inputs)."""
     from bootstrapper_torch.models.model import head_dims, unet_config
+    from bootstrapper_torch.models.unet import lift_2d_config
     from bootstrapper_torch.ops.conv3d import conv3d_supported
 
     cfg = unet_config(net_config)
+    if cfg.dims == 2:  # the lifted net on one section
+        cfg, input_shape = lift_2d_config(cfg), (1, *input_shape)
     nf, inc = cfg.num_fmaps, cfg.fmap_inc_factor
     # "on_input": the part of both routes whose convs read the net's input
     flops = {"kernel": 0.0, "library": 0.0, "on_input": 0.0}
@@ -1478,10 +1509,11 @@ def time_train_step(net_config: dict, sample_root: str, voxel_size, seed: int, s
     if not (fwd_ms and bwd_ms and step_ms):
         raise RuntimeError("torch.profiler recorded no device event in a train step")
     fl = tile_flops(net_config, net_config["input_shape"])
-    forward = fl["kernel"] + fl["library"]
+    n = pipe.batch_size
+    forward = (fl["kernel"] + fl["library"]) * n
     # backward, counted: dW of every conv, dX of every conv but those that
     # read the net's input (conv products only)
-    backward = forward + (forward - fl["on_input"])
+    backward = forward + (forward - fl["on_input"] * n)
     return {
         "input_tile": list(net_config["input_shape"]), "batch": pipe.batch_size, "steps": steps,
         "wall_ms_per_iteration": wall_ms, "samples_per_s": 1e3 / wall_ms * pipe.batch_size,
@@ -1492,7 +1524,7 @@ def time_train_step(net_config: dict, sample_root: str, voxel_size, seed: int, s
         "profiled_step_wall_ms": step_wall_ms, "profiled_step_device_ms": step_ms,
         "idle_share": 1 - step_ms / step_wall_ms, "peak_memory_gb": peak / 1e9,
         "flops_forward": forward, "flops_backward": backward,
-        "flops_forward_kernel_route": fl["kernel"],
+        "flops_forward_kernel_route": fl["kernel"] * n,
         "tflops_per_s": (forward + backward) / wall_ms / 1e9,
         "bf16_roofline_share": (forward + backward) / wall_ms / 1e9 / (PEAK_BF16 / 1e12),
         "bound_ms": (forward + backward) / PEAK_BF16 * 1e3,
@@ -1651,23 +1683,27 @@ def check_errors(entry: dict, seg, pred, neighborhood, thresholds, out_container
     return out
 
 
-def write_gt_affinities(labels, pred, neighborhood, device) -> None:
+def write_gt_affinities(labels, pred, neighborhood, device, grow: int = 0) -> None:
     """Overwrite the prediction ``pred`` (uint8, channels first) with the
     affinities of the GT ``labels`` over its ROI, as a perfect net would
     predict them: ``seg_to_affs`` on ``device`` of the labels read grown by
-    the neighbourhood's extent (renumbered on the host, exactly), 255 for
-    an affinity."""
+    the neighbourhood's extent (renumbered on the host, exactly; their
+    boundaries grown in xy by ``grow``, as the net's targets), 255 for an
+    affinity."""
     import torch
 
     from bootstrapper_torch.core.geometry import Coordinate
-    from bootstrapper_torch.ops.affinities import seg_to_affs
+    from bootstrapper_torch.ops.affinities import grow_boundary, seg_to_affs
     from bootstrapper_torch.train.sampler import renumber
 
     if pred.shape[0] != len(neighborhood):
         raise AssertionError(f"{pred.shape[0]} prediction channels for {len(neighborhood)} offsets")
     ext = Coordinate(np.abs(np.asarray(neighborhood)).max(0).tolist())
     ids = renumber(labels.to_ndarray(pred.roi.grow(ext * pred.voxel_size, ext * pred.voxel_size)))
-    affs = seg_to_affs(torch.from_numpy(ids.astype(np.int64)).to(device), neighborhood, torch.uint8) * 255
+    ids = torch.from_numpy(ids.astype(np.int64)).to(device)
+    if grow:
+        ids = grow_boundary(ids, steps=grow, only_xy=True)
+    affs = seg_to_affs(ids, neighborhood, torch.uint8) * 255
     crop = tuple(slice(e, n - e) for e, n in zip(ext, ids.shape))
     pred[pred.roi] = affs[(slice(None), *crop)].cpu().numpy()
 
@@ -2008,24 +2044,28 @@ def launch_group(stage_log: dict, cases) -> dict:
     return {"by_conv": dict(stage_log["conv_launches"]), "cases": list(cases)}
 
 
-def check_stream_launches(name: str, by_conv: dict, warm, steady, stats: dict) -> None:
-    """K1 once per column at each warm-step conv and once per later step
-    at each steady-step conv of a streamed prediction, nowhere else."""
-    if "steps_per_column" not in stats:
-        raise AssertionError(f"{name}: the prediction was not streamed: {stats}")
-    columns, steps = stats["columns"], stats["steps_per_column"]
+def check_launches(name: str, by_conv: dict, runs) -> None:
+    """K1 launched ``n`` times at each traced conv of ``cases`` (once per
+    forward) for each ``(cases, n)`` of ``runs``, and nowhere else."""
     want: dict = {}
-    for cases, n in ((warm, columns), (steady, columns * (steps - 1))):
+    for cases, n in runs:
         for c in cases:
             want[conv_key(c)] = want.get(conv_key(c), 0) + n
     if by_conv != want:
         raise AssertionError(f"{name}: conv kernel launches {by_conv}, want {want}")
 
 
+def check_stream_launches(name: str, by_conv: dict, warm, steady, stats: dict) -> None:
+    """K1 once per column at each warm-step conv and once per later step
+    at each steady-step conv of a streamed prediction, nowhere else."""
+    if "steps_per_column" not in stats:
+        raise AssertionError(f"{name}: the prediction was not streamed: {stats}")
+    columns, steps = stats["columns"], stats["steps_per_column"]
+    check_launches(name, by_conv, [(warm, columns), (steady, columns * (steps - 1))])
+
+
 def check_train_launches(name: str, by_conv: dict, net_config: dict, n: int) -> None:
-    keys = train_conv_keys(net_config)
-    if set(by_conv) != keys or set(by_conv.values()) != {n}:
-        raise AssertionError(f"{name}: conv kernel launches {by_conv}, want {n} at each of {len(keys)}")
+    check_launches(name, by_conv, [(train_conv_cases(net_config), n)])
 
 
 def check_lsd_block(seg, pred, seed: int, device) -> dict:
@@ -2331,6 +2371,246 @@ def chain_phase(work: str, volumes: dict, seed: int, net_config: dict, iteration
     return out, groups
 
 
+def traced_cases(prefix: str, net_config: dict, x_shape, stack_infer: bool = False) -> list:
+    """The kernel-route convs of one forward of ``net_config`` on an input
+    of ``x_shape``, traced on the ``meta`` device, each named after its
+    place in the forward, widths and kernel: ``(name, input shape, crop,
+    weight shape, bias)``."""
+    import torch
+
+    from bootstrapper_torch.models import Model
+
+    with torch.device("meta"):
+        model = Model(net_config, stack_infer=stack_infer)
+    x = torch.empty(tuple(x_shape), device="meta")
+    with torch.no_grad():
+        _, cases = trace_kernel_convs(lambda: model(x))
+    return [(f"{prefix}_{i}_{c[2][3]}to{c[2][4]}_k{'x'.join(map(str, c[2][:3]))}", *c) for i, c in enumerate(cases)]
+
+
+def write_gt_2d(labels, affs, lsds, net_config: dict, device) -> None:
+    """Overwrite a 2D net's two heads (uint8, channels first) with what a
+    perfect 2D net predicts from the GT ``labels``, its training targets:
+    each section's affinities (the 2D neighbourhood at z offset 0, the
+    boundaries grown as the head's ``grow_boundary`` says) and each
+    section's 2D
+    LSDs, on the downsampled grid the net's targets use, from the
+    section's ids renumbered on the host (all of them: no label cap)."""
+    import torch
+
+    from bootstrapper_torch.core.geometry import Coordinate, Roi
+    from bootstrapper_torch.ops.lsd import lsd_descriptors_downsampled
+    from bootstrapper_torch.train.sampler import renumber
+
+    outs = net_config["outputs"]
+    nbhd = [[0, *o] for o in outs["2d_affs"]["neighborhood"]]
+    write_gt_affinities(labels, affs, nbhd, device, grow=outs["2d_affs"].get("grow_boundary", 0))
+    vs, roi = lsds.voxel_size, lsds.roi
+    for z in range(roi.shape[0] // vs[0]):
+        section = Roi(roi.begin + Coordinate((z * vs[0], 0, 0)), Coordinate((vs[0], *roi.shape[1:])))
+        ids = renumber(labels.to_ndarray(section)[0])
+        t = lsd_descriptors_downsampled(
+            torch.from_numpy(ids.astype(np.int64)).to(device), outs["2d_lsds"]["sigma"], tuple(vs[1:]),
+            outs["2d_lsds"]["downsample"], max_labels=int(ids.max()) + 1,
+        )
+        lsds[section] = torch.round(torch.clamp(t, 0, 1) * 255).to(torch.uint8)[:, None].cpu().numpy()
+
+
+def forward_2d_check(net_config: dict, params, x, device) -> dict:
+    """The 2D net's bf16 forward on the card (the kernel route, lifted to a
+    unit z) against the CPU's fp32 one on the same sections, every head
+    within FWD_ATOL_BF16."""
+    import torch
+
+    from bootstrapper_torch.models import Model, load_params
+
+    x = x.float().cpu()
+    with torch.no_grad():
+        ref = load_params(Model(net_config, compute_dtype=torch.float32), params).eval()(x)
+        card = load_params(Model(net_config), params).to(device).eval()
+        got = {k: v.cpu() for k, v in card(x.to(device)).items()}
+    errs = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
+    out = {"input": list(x.shape), "bf16_max_abs_err": errs, "atol": FWD_ATOL_BF16}
+    if max(errs.values()) > FWD_ATOL_BF16 or not all(bool(torch.isfinite(v).all()) for v in got.values()):
+        raise AssertionError(f"2D bf16 forward against CPU fp32: {out}")
+    return out
+
+
+def chain2d_phase(work: str, volumes: dict, seed: int, net_config: dict, iterations: int, timed_steps: int,
+                  device="cuda") -> tuple:
+    """The reference's flagship round, ``2d_mtlsd -> 3d_affs_from_2d_mtlsd``,
+    from the configs ``make_round_configs`` writes with the sample's labels
+    as GT, on the Voronoi sample ``volumes`` names: the 2D net's bf16
+    forward against CPU fp32 and its bf16 gradients at batch 10 against
+    fp32 on a real batch; then train 2d_mtlsd (batch 10), predict the chain
+    (the 2D link tiled, 32 sections a batch; the shipped refiner
+    streamed), segment (ws), evaluate (VOI), filter; then the GT's own 2D
+    affinities and LSDs written over the 2D link's outputs, the refiner
+    link alone again, segment, evaluate and filter (``gt_2d``: that
+    segmentation may not be empty); the steady train step; the 2D link's
+    Mvox/s at BATCH_TILES_SWEEP.  Launch counts as in ``chain_phase``: K1
+    once per iteration at each training shape, once per batch of sections
+    at each 2D predict shape, on every refiner step; K2 in each segment.
+    Returns the phase's line and its K1 launch groups."""
+    import torch
+
+    from bootstrapper_torch import configs
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models import Model, init_params_numpy, load_checkpoint, load_params
+    from bootstrapper_torch.models.weights import latest_checkpoint
+    from bootstrapper_torch.pipeline.training import TrainingPipeline
+    from bootstrapper_torch.predict.scan import Predictor, prepare_prediction_outputs, shrink_shape_increase
+    from bootstrapper_torch.train.sampler import Sample
+    from bootstrapper_torch.utils import tomlio
+    from bootstrapper_torch.workflows import (
+        run_evaluation, run_filter, run_prediction, run_segmentation, run_training,
+    )
+    from bootstrapper_torch.workflows.filter import get_best_seg_from_eval
+
+    names = ["2d_mtlsd", "3d_affs_from_2d_mtlsd"]
+    stages: dict = {}
+    vol = volumes["vol"]
+    container, vs = vol["output_container"], tuple(vol["voxel_size"])
+    chain_dir = os.path.join(work, "chain2d")
+    paths = configs.make_round_configs(
+        chain_dir, volumes, names, max_iterations=iterations, gt_labels=vol["labels_dataset"]
+    )
+    write_setup_config(os.path.join(chain_dir, "setups", names[0]), net_config)
+    refiner_dir = os.path.join(chain_dir, "setups", names[1])
+    shipped = latest_checkpoint(refiner_dir)
+    if shipped is None or not shipped.endswith("model_checkpoint_20000"):
+        raise AssertionError(f"the refiner's shipped checkpoint is not installed: {shipped}")
+    links = tomlio.load(paths["predict"])["predict"]["vol"]["chain"]
+    fcfg = tomlio.load(paths["filter"])["filter"]["vol"]
+    out = {"iterations": iterations, "refiner_checkpoint": os.path.basename(shipped)}
+
+    # the 2D net on a real batch of 10: bf16 forward, bf16 gradients
+    sample = Sample(*(open_ds(vol[k]) for k in ("raw_dataset", "labels_dataset", "labels_mask_dataset")))
+    pipe = TrainingPipeline(net_config, vs, [sample], seed=seed, device=device, num_threads=1)
+    try:
+        batch = pipe.next_batch()
+    finally:
+        pipe.stop()
+    params = init_params_numpy(net_config, seed)
+    out["batch"] = pipe.batch_size
+    out["forward"] = forward_2d_check(net_config, params, batch["input"][:2], device)
+    out["gradients"] = whole_net_gradients(net_config, params, batch, device)
+    del batch
+
+    train = stage(stages, "train", lambda: run_training(paths[f"train_{names[0]}"], device=device))
+    stats = stage(stages, "predict", lambda: run_prediction(paths["predict"], device=device))
+    if train["iterations"] != iterations:
+        raise AssertionError(f"training: {train}")
+    per_link = [stats[f"vol/{link['output_prefix']}"] for link in links]
+    heads = {k: open_ds(os.path.join(container, links[0]["output_prefix"], k)) for k in net_config["outputs"]}
+    affs = open_ds(os.path.join(container, links[1]["output_prefix"], "3d_affs"))
+    shape = tuple(affs.roi.shape / vs)
+    if affs.shape != (9, *shape) or any(h.shape != (6, *shape) or h.dtype != np.uint8 for h in heads.values()):
+        raise AssertionError(f"chain outputs: {affs.shape}, {[h.shape for h in heads.values()]}")
+
+    def segment_evaluate_filter(suffix):
+        """segment, evaluate by VOI and filter from the chain's configs; the
+        filter held against the host filter."""
+        segs = stage(stages, f"segment{suffix}", lambda: run_segmentation(paths["segment"], device=device))["vol"]
+        voi = stage(stages, f"evaluate{suffix}", lambda: run_evaluation(paths["evaluate"], device=device))["vol"]
+        filtered = stage(stages, f"filter{suffix}", lambda: run_filter(paths["filter"]))["vol"]
+        best, err_mask = get_best_seg_from_eval(os.path.join(container, "eval", "vol_results.json"))
+        return {
+            "segments_per_threshold": {t: int(len(np.unique(open_ds(p).to_ndarray())) - 1) for t, p in segs.items()},
+            "best_segmentation": os.path.basename(best),
+            "voi": {os.path.basename(p): e["voi"] for p, e in voi.items()},
+            **check_filter(filtered, best, err_mask, fcfg),
+        }
+
+    out.update(
+        final_loss=train["final_loss"],
+        links={name: {k: s[k] for k in s if k != "plan"} for name, s in zip(names, per_link)},
+        voxels_per_sec={name: s["voxels_per_sec"] for name, s in zip(names, per_link)},
+        heads_mean={k: float(h.to_ndarray().mean()) for k, h in heads.items()},
+        affs_mean=float(affs.to_ndarray().mean()),
+        **segment_evaluate_filter(""),
+    )
+    # the refiner on real 2D inputs: the GT's own 2D heads (a net this
+    # young sits on the loss floor), the refiner link alone again
+    labels = open_ds(vol["labels_dataset"])
+    t0 = time.perf_counter()
+    write_gt_2d(labels, heads["2d_affs"], heads["2d_lsds"], net_config, device)
+    out["write_gt_2d_seconds"] = time.perf_counter() - t0
+    gt_stats = stage(stages, "predict_gt_2d", lambda: run_prediction(paths["predict"], setup_id=names[1], device=device))
+    out["gt_2d"] = {
+        "refiner": {k: v for k, v in gt_stats[f"vol/{links[1]['output_prefix']}"].items() if k != "plan"},
+        "affs_mean": float(affs.to_ndarray().mean()),
+        **segment_evaluate_filter("_gt_2d"),
+    }
+    if max(out["gt_2d"]["segments_per_threshold"].values()) < 1:
+        raise AssertionError(f"the refiner segmented nothing from the GT's own 2D heads: {out['gt_2d']}")
+
+    # the 2D link's throughput by batch of sections
+    raw = open_ds(vol["raw_dataset"])
+    model = load_params(Model(net_config), load_checkpoint(train["checkpoint"]))
+    fitted = shrink_shape_increase(model, shape)
+    sweep_stages: dict = {}
+    out["batch_tiles_sweep"] = {}
+    for b in BATCH_TILES_SWEEP:
+        pred = Predictor(model, vs, shape_increase=fitted, batch_tiles=b, device=device)
+        outputs = prepare_prediction_outputs(
+            os.path.join(work, "sweep.zarr"), model, raw.roi, vs, pred, dataset_prefix=f"b{b}/"
+        )
+        s = stage(sweep_stages, f"batch_{b}", lambda: pred.predict(raw, outputs))
+        out["batch_tiles_sweep"][b] = {"voxels_per_sec": s["voxels_per_sec"], "seconds": s["seconds"], "tiles": s["tiles"]}
+    del model
+    if device == "cuda":
+        out["step"] = time_train_step(net_config, container, vs, seed, timed_steps, device)
+    out["stage_seconds"] = {k: v["seconds"] for k, v in stages.items()}
+    out["launches"] = {k: v["launches"] for k, v in stages.items()}
+    if device != "cuda":
+        return out, []
+
+    snapshot_every = tomlio.load(paths[f"train_{names[0]}"])["train"]["save_snapshots_every"] or 10**9
+    train_cases = traced_cases("chain2d_train", net_config, (pipe.batch_size, *pipe.spec.input_tile, 1))
+    check_launches("chain2d train", stages["train"]["conv_launches"],
+                   [(train_cases, iterations + iterations // snapshot_every)])
+    # the 2D link: once per batch of sections; the refiner: on every step
+    by_conv = dict(stages["predict"]["conv_launches"])
+    batches = -(-per_link[0]["tiles"] // 32)
+    predict_cases = traced_cases("chain2d_predict_b32", net_config, (32, *tile_2d(net_config, fitted), 1), True)
+    link = {k: by_conv.pop(k) for k in {conv_key(c) for c in predict_cases} if k in by_conv}
+    check_launches("chain2d predict 2d_mtlsd", link, [(predict_cases, batches)])
+    refiner_nc = Model.from_setup(refiner_dir).net_config
+    s = per_link[1]
+    warm, steady = trace_stream_convs(refiner_nc, [s["step_z"], *s["input_tile"][1:]], s["warm_step_z"])
+    check_stream_launches("chain2d predict refiner", by_conv, warm, steady, s)
+    check_stream_launches("chain2d predict_gt_2d", stages["predict_gt_2d"]["conv_launches"], warm, steady,
+                          gt_stats[f"vol/{links[1]['output_prefix']}"])
+    refiner_cases = [
+        (f"chain2d_refiner_{phase}_{i}_{c[2][3]}to{c[2][4]}_k{c[2][0]}", *c)
+        for phase, traced in (("warm", warm), ("steady", steady)) for i, c in enumerate(traced)
+    ]
+    seed_launches = [stages[k]["launches"]["seed_maxima.kernel"] for k in ("segment", "segment_gt_2d")]
+    if min(seed_launches) < 1:
+        raise AssertionError(f"chain2d segment: the seed kernel did not run in each: {seed_launches}")
+    out["seed_launches"] = sum(seed_launches)
+    groups = [
+        launch_group(stages["train"], train_cases),
+        launch_group(stages["predict"], predict_cases + refiner_cases),
+        launch_group(stages["predict_gt_2d"], refiner_cases),
+    ]
+    for b in BATCH_TILES_SWEEP:
+        cases = predict_cases if b == 32 else traced_cases(
+            f"chain2d_predict_b{b}", net_config, (b, *tile_2d(net_config, fitted), 1), True
+        )
+        n = -(-out["batch_tiles_sweep"][b]["tiles"] // b)
+        check_launches(f"chain2d batch_tiles {b}", sweep_stages[f"batch_{b}"]["conv_launches"], [(cases, n)])
+        groups.append(launch_group(sweep_stages[f"batch_{b}"], cases))
+    return out, groups
+
+
+def tile_2d(net_config: dict, inc) -> tuple:
+    """A 2D setup's predictor input tile at ``shape_increase`` ``inc``:
+    ``(adj_slices, H, W)``."""
+    return (net_config.get("adj_slices", 1), *(a + b for a, b in zip(net_config["input_shape"], inc)))
+
+
 def merge_launches(rows: list, groups, seed: int) -> int:
     """Adds each group's K1 launches to the row of its conv; a conv no row
     holds yet is held against its plain version (``check_conv``, the
@@ -2526,6 +2806,11 @@ def main(argv=None) -> int:
         emit({"phase": "mtlsd_round", "nvidia_smi": smi, **mtlsd})
         chain, chain_groups = chain_phase(work, volumes, args.seed, get_net_config("3d_lsd"), CHAIN_ITERATIONS)
         emit({"phase": "chain", "nvidia_smi": smi, **chain})
+        # the 2D chain: 2d_mtlsd -> 3d_affs_from_2d_mtlsd, the shipped refiner
+        chain2d, chain2d_groups = chain2d_phase(
+            work, volumes, args.seed, get_net_config("2d_mtlsd"), CHAIN2D_ITERATIONS, TIMED_STEPS
+        )
+        emit({"phase": "chain2d", "nvidia_smi": smi, **chain2d})
     # the stream against the tiled path at its own xy tile, and the share of
     # voxels that differ from the zoo-tiled path, seams included
     vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
@@ -2544,11 +2829,11 @@ def main(argv=None) -> int:
     )
     # the LSD phases' launches, on the rows of their convs (new convs, the
     # refiner's, held against plain here)
-    conv_launches += merge_launches(conv_rows, mtlsd_groups + chain_groups, args.seed)
+    conv_launches += merge_launches(conv_rows, mtlsd_groups + chain_groups + chain2d_groups, args.seed)
     # their segments run K2 at the round's (64,512,512) stack
-    round_seed_rows[0]["launches"] += mtlsd["seed_launches"] + chain["seed_launches"]
-    seed_launches += stream_seed + sum(round_line["seed_launches"].values())
-    seed_launches += mtlsd["seed_launches"] + chain["seed_launches"]
+    lsd_seed_launches = mtlsd["seed_launches"] + chain["seed_launches"] + chain2d["seed_launches"]
+    round_seed_rows[0]["launches"] += lsd_seed_launches
+    seed_launches += stream_seed + sum(round_line["seed_launches"].values()) + lsd_seed_launches
     seed_rows += round_seed_rows
     top_conv = max(conv_rows, key=lambda r: r["ms"] * r["launches"])
     top_seed = seed_rows[0]

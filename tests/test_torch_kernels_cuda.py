@@ -56,6 +56,17 @@ CUDA_CASES = [
     ((2, 6, 9, 9, 130), (3, 3, 3, 130, 9), BF16, (4, 7, 7)),
     # a window wider than a tensor map's 16: 16-byte cp.async on voxel lines
     ((1, 2, 5, 40, 128), (1, 2, 17, 128, 16), BF16, None),
+    # the 2D nets, lifted to a unit z: batches of sections, D = 1, kd = 1,
+    # so M tiles run across sections (the predictor's 32, at few voxels)
+    ((32, 1, 14, 14, 300), (1, 3, 3, 300, 300), BF16, None),
+    ((32, 1, 8, 8, 1500), (1, 3, 3, 1500, 1500), BF16, None),
+    ((32, 1, 12, 12, 300), (1, 3, 3, 300, 300), BF16, (1, 8, 8)),
+    ((10, 1, 9, 9, 1500), (1, 1, 1, 1500, 300), BF16, (1, 5, 5)),
+    # the 3d_affs_from_2d_* refiners' 243 channels: an odd count (a padded
+    # pitch on voxel lines, 8-byte copies dense) and a ragged last K chunk
+    ((1, 6, 10, 10, 243), (3, 3, 3, 243, 243), BF16, None),
+    ((1, 6, 10, 10, 243), (3, 3, 3, 243, 81), BF16, None),
+    ((1, 6, 10, 10, 243), (1, 1, 1, 243, 81), BF16, (4, 8, 8)),
 ]
 
 
@@ -116,12 +127,20 @@ def test_conv3d_cuda_refuses_where_a_gradient_is_needed(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("relu,crop", [(True, None), (False, (4, 8, 8))])
-def test_conv3d_function_gradients_match_plain_fp32(cuda, relu, crop):
+@pytest.mark.parametrize(
+    "x_shape,w_shape,relu,crop",
+    [
+        ((1, 7, 12, 12, 300), (3, 3, 3, 300, 150), True, None),
+        ((1, 7, 12, 12, 300), (3, 3, 3, 300, 150), False, (4, 8, 8)),
+        # a 2D training batch of 10, lifted: D = 1, kd = 1
+        ((10, 1, 12, 12, 300), (1, 3, 3, 300, 300), True, None),
+    ],
+)
+def test_conv3d_function_gradients_match_plain_fp32(cuda, x_shape, w_shape, relu, crop):
     """fp32 with TF32 off: the kernel forward and cuDNN's backward against
     autograd through the plain version, within 1e-4 of each reference's
     largest value (fp32 sums in other orders)."""
-    x, w, b = _conv_inputs(cuda, (1, 7, 12, 12, 300), (3, 3, 3, 300, 150), F32, crop, "lines")
+    x, w, b = _conv_inputs(cuda, x_shape, w_shape, F32, crop, "lines")
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:

@@ -106,6 +106,9 @@ ROUND_CONFIGS = {
     "gt": dict(gt_labels="labels"),
     "no_gt": dict(),
     "chain": dict(model_names=["3d_lsd", "3d_affs_from_3d_lsd"]),
+    # the 2D chain, scored by VOI and, without GT, by the refiner's errors
+    "chain_2d": dict(model_names=["2d_mtlsd", "3d_affs_from_2d_mtlsd"], gt_labels="labels"),
+    "chain_2d_no_gt": dict(model_names=["2d_mtlsd", "3d_affs_from_2d_mtlsd"]),
 }
 
 

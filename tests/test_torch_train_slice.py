@@ -141,7 +141,6 @@ def test_train_resume_predict(workdir):
         ({"setup": "3d_affs_from_2d_affs"}, "synthetic"),
         ({"fold_xy": True}, "fold_xy"),
         ({"mesh": True}, "mesh"),
-        ({"net": {"input_shape": [196, 196], "output_shape": [104, 104]}}, "2D"),
         # a refiner with the zoo's LSD inputs: synthetic training (not ported)
         ({"setup": "3d_affs_from_3d_lsd", "net": {"inputs": get_net_config("3d_affs_from_3d_lsd")["inputs"]}},
          "synthetic"),
@@ -165,6 +164,26 @@ def test_unported_configs_raise(workdir, change, match):
     tomlio.dump({"train": cfg}, str(workdir / "t.toml"))
     with pytest.raises(NotImplementedError, match=match):
         run_training(str(workdir / "t.toml"), device="cpu")
+
+
+def test_2d_setup_trains(workdir):
+    """A 2D setup (a narrow 2d_mtlsd, both heads) through ``run_training``
+    at its default batch of 10: the checkpoint holds the JAX layout's 2D
+    weights, and the JAX trainer resumes from it."""
+    nc = get_net_config("2d_mtlsd")
+    nc.update(num_fmaps=2, fmap_inc_factor=2, input_shape=[100, 100], output_shape=[8, 8])
+    setup = workdir / "setup" / "2d_mtlsd"
+    setup.mkdir()
+    (setup / "net_config.json").write_text(json.dumps(nc))
+    cfg = tomlio.load(str(workdir / "train.toml"))["train"]
+    cfg.update(setup_dir=str(setup), max_iterations=1)
+    tomlio.dump({"train": cfg}, str(workdir / "t2d.toml"))
+    out = run_training(str(workdir / "t2d.toml"), device="cpu", compute_dtype=torch.float32)
+    assert out["iterations"] == 1 and np.isfinite(out["final_loss"])
+    with np.load(out["checkpoint"]) as data:
+        assert data["params/unet/l_conv/0/layers/0/w"].shape == (3, 3, 3, 2)  # (kh, kw, adj * 1, 2)
+    state = JL.load_checkpoint(out["checkpoint"], optax.adam(1e-4))
+    assert int(state.step) == 1
 
 
 def test_setup_train_overrides(workdir):

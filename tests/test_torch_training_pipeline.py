@@ -276,13 +276,36 @@ def test_pipeline_end_to_end_on_cpu(sample_paths):
         pipe.stop()
 
 
-def test_unported_setups_raise():
-    """2D setups still raise; LSD outputs (3d_lsd, 3d_mtlsd) pass."""
-    nc = _net_config()
-    with pytest.raises(NotImplementedError, match="2D"):
-        T.SetupSpec({**nc, "input_shape": [40, 40]}, VOXEL).check_ported()
-    T.SetupSpec({**nc, "outputs": {"lsd": {"dims": 10, "sigma": 80}}}, VOXEL).check_ported()
-    T.SetupSpec(_mtlsd_net_config(), VOXEL).check_ported()
+def test_setups_of_each_kind_transform():
+    """A 2D setup (2d_mtlsd at a small tile), an LSD one and 3d_mtlsd all
+    build a transform that gives their heads' targets: the 2D one at batch
+    10 and learning rate 1e-4, on ``adj_slices`` sections, with the
+    neighbourhood given a z of 0 and 2D targets of the centre section."""
+    nc2 = get_net_config("2d_mtlsd")
+    nc2.update(input_shape=[60, 60], output_shape=[24, 24])
+    gen = AUG.Generators(0)
+    rng = np.random.default_rng(0)
+    for nc, heads in (
+        (nc2, {"2d_lsds": (24, 24, 6), "2d_affs": (24, 24, 6)}),
+        ({**_net_config(), "outputs": {"lsd": {"dims": 10, "sigma": 80}}}, {"lsd": (4, 20, 20, 10)}),
+        (_mtlsd_net_config(), {"3d_lsds": (4, 20, 20, 10), "3d_affs": (4, 20, 20, 9)}),
+    ):
+        spec = T.SetupSpec(nc, VOXEL)
+        shape = spec.input_tile
+        b = T.upload(
+            {
+                "raw": rng.integers(0, 256, (1, *shape), dtype=np.uint8),
+                "labels": S.fold_ids_u32(_voronoi(shape, 12, 0))[None],
+                "mask": np.ones((1, *shape), np.uint8),
+            },
+            "cpu",
+        )
+        net_in, targets, _ = T.make_device_transform(spec)(gen, b["raw"][0], b["labels"][0], b["mask"][0])
+        assert net_in.shape == (*shape, 1)
+        assert {k: tuple(v.shape) for k, v in targets.items()} == heads
+    spec = T.SetupSpec(nc2, VOXEL)
+    assert (spec.input_tile, spec.output_tile, spec.batch_size, spec.learning_rate) == ((3, 60, 60), (1, 24, 24), 10, 1e-4)
+    assert spec.output_spec("2d_affs")["neighborhood"][:2] == [[0, -1, 0], [0, 0, -1]]
 
 
 def _mtlsd_net_config(tile=(8, 40, 40), out=(4, 20, 20)):
