@@ -292,10 +292,11 @@ def make_batch_transform(spec: SetupSpec, prob_artifact: float = 0.0, with_artif
     return batched
 
 
-def upload(batch: dict, device) -> dict:
+def upload(batch: dict, device, ids=("labels",)) -> dict:
     """A host batch on ``device``: raw bytes, the mask and artifact crops as
-    they are, uint32 ids as int64 (their bits, widened on the card); from
-    pinned memory, queued without waiting for the card."""
+    they are, the uint32 ids of the arrays named in ``ids`` as int64 (their
+    bits, widened on the card); from pinned memory, queued without waiting
+    for the card."""
     device = torch.device(device)
 
     def to(a):
@@ -304,12 +305,14 @@ def upload(batch: dict, device) -> dict:
             t = t.pin_memory()
         return t.to(device, non_blocking=True)
 
-    out = {k: to(v) for k, v in batch.items() if k != "labels"}
-    labels = batch["labels"]
-    if labels.dtype == np.uint32:
-        out["labels"] = to(labels.view(np.int32)).to(torch.int64) & 0xFFFFFFFF
-    else:
-        out["labels"] = to(labels.astype(np.int64, copy=False))
+    out = {}
+    for k, v in batch.items():
+        if k not in ids:
+            out[k] = to(v)
+        elif v.dtype == np.uint32:
+            out[k] = to(v.view(np.int32)).to(torch.int64) & 0xFFFFFFFF
+        else:
+            out[k] = to(v.astype(np.int64, copy=False))
     return out
 
 

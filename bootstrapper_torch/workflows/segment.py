@@ -1,11 +1,18 @@
-"""Segmentation workflow: TOML config -> in-memory ws segmentation (the
-JAX package's ``workflows/segment.py``, ws mode).
+"""Segmentation workflow: TOML config -> in-memory ws, mws or cc
+segmentation (the JAX package's ``workflows/segment.py``).
 
-Per volume: read the affinities (``affs_dataset``), run
-``waterz_segmentation`` with the ws defaults, ``[<volume>.ws_params]``
-and ``param_overrides`` (``key=value``), and write one uint64 dataset per
-threshold as ``<seg_dataset_prefix>/<merge_function>--<threshold>``.
-Blockwise runs and the mws and cc modes are not ported yet.
+Per volume: read the affinities (``affs_dataset``), take the method's
+defaults (``post/segment.py:METHOD_DEFAULTS``), ``[<volume>.<method>_params]``
+and ``param_overrides`` (``key=value``), and write uint64 datasets under
+``seg_dataset_prefix``, named as the JAX package names them:
+
+- ws: one per threshold, ``<merge_function>--<threshold>``;
+- mws: ``mws``, or with ``bias_sweep = [[short, long], ...]`` one per
+  point, ``mws--a<short>_l<long>`` (each point's bias mapped per offset:
+  ``short`` for the direct neighbours, ``long`` for the rest);
+- cc: ``cc--<threshold>``.
+
+Blockwise runs are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import numpy as np
 
 from ..core.arrays import open_ds, prepare_ds
 from ..core.geometry import Roi
-from ..post.segment import WS_DEFAULTS, waterz_segmentation
+from ..post.segment import METHOD_DEFAULTS, cc_segmentation, mws_segmentation, waterz_segmentation
 from ..utils import tomlio
 
 
@@ -25,9 +32,14 @@ def _fmt_threshold(t: float) -> str:
     return f"{t:.3f}".rstrip("0").rstrip(".").replace(".", "_")
 
 
-def get_seg_config(cfg: dict, param_overrides=()) -> dict:
-    params = dict(WS_DEFAULTS)
-    params.update(cfg.get("ws_params", {}))
+def mws_sweep_label(adj_bias: float, lr_bias: float) -> str:
+    """Dataset label for one (short, long) bias operating point."""
+    return f"mws--a{adj_bias:g}_l{lr_bias:g}"
+
+
+def get_seg_config(cfg: dict, method: str, param_overrides=()) -> dict:
+    params = dict(METHOD_DEFAULTS.get(method, {}))
+    params.update(cfg.get(f"{method}_params", {}))
     for kv in param_overrides:
         k, v = kv.split("=", 1)
         try:
@@ -37,6 +49,11 @@ def get_seg_config(cfg: dict, param_overrides=()) -> dict:
     return params
 
 
+def _write_seg(path: str, seg: np.ndarray, affs, roi: Roi) -> None:
+    ds = prepare_ds(path, seg.shape, roi.offset, affs.voxel_size, np.uint64)
+    ds[ds.roi] = seg
+
+
 def run_segmentation(
     config_file: str,
     mode: str = "ws",
@@ -44,12 +61,15 @@ def run_segmentation(
     param_overrides=(),
     roi_offset=None,
     roi_shape=None,
+    require_params: bool = False,
     device=None,
 ) -> dict:
-    """Segment every volume of the config; returns ``{volume: {threshold:
-    dataset path}}``.  Seeds run on ``device``."""
-    if mode != "ws":
-        raise NotImplementedError(f"segmentation mode {mode!r} is not ported yet")
+    """Segment every volume of the config by ``mode`` (ws, mws or cc);
+    returns ``{volume: {key: dataset path}}`` (ws keys are thresholds).
+    With ``require_params`` a volume without ``[<volume>.<mode>_params]``
+    is skipped.  ws's seeds run on ``device``; mws and cc are host-only."""
+    if mode not in METHOD_DEFAULTS:
+        raise ValueError(f"unknown segmentation mode {mode!r}")
     if (roi_offset is None) != (roi_shape is None):
         raise ValueError("roi_offset and roi_shape must be given together")
     cfg_all = tomlio.load(config_file)
@@ -58,9 +78,11 @@ def run_segmentation(
     for volume_name, cfg in cfg_all.items():
         if volume is not None and volume_name != volume:
             continue
+        if require_params and cfg.get(f"{mode}_params") is None:
+            continue
         if cfg.get("blockwise", False):
             raise NotImplementedError("blockwise segmentation is not ported yet")
-        params = get_seg_config(cfg, param_overrides)
+        params = get_seg_config(cfg, mode, param_overrides)
         roi = None
         if roi_offset is not None:
             roi = Roi(roi_offset, roi_shape)
@@ -69,22 +91,52 @@ def run_segmentation(
         affs = open_ds(cfg["affs_dataset"])
         a = affs.to_ndarray(roi) if roi else affs.to_ndarray()
         total = roi or affs.roi
-        segs = waterz_segmentation(
-            a,
-            thresholds=params["thresholds"],
-            merge_function=params["merge_function"],
-            fragments_in_xy=params["fragments_in_xy"],
-            min_seed_distance=params["min_seed_distance"],
-            device=device,
-        )
+        prefix = cfg["seg_dataset_prefix"]
         out = {}
-        for t, seg in segs.items():
-            name = (
-                f"{cfg['seg_dataset_prefix']}/"
-                f"{params['merge_function']}--{_fmt_threshold(t)}"
+        if mode == "ws":
+            segs = waterz_segmentation(
+                a,
+                thresholds=params["thresholds"],
+                merge_function=params["merge_function"],
+                fragments_in_xy=params["fragments_in_xy"],
+                min_seed_distance=params["min_seed_distance"],
+                device=device,
             )
-            ds = prepare_ds(name, seg.shape, total.offset, affs.voxel_size, np.uint64)
-            ds[ds.roi] = seg
-            out[str(t)] = name
+            for t, seg in segs.items():
+                name = f"{prefix}/{params['merge_function']}--{_fmt_threshold(t)}"
+                _write_seg(name, seg, affs, total)
+                out[str(t)] = name
+        elif mode == "mws":
+            nbhd = params.get("neighborhood", params.get("aff_neighborhood"))
+            sweep = params.get("bias_sweep")
+            if sweep is not None:
+                # biases per offset, not by position: a custom neighbourhood
+                # may interleave direct neighbours and long-range offsets
+                is_short = [max(abs(int(v)) for v in o) <= 1 for o in nbhd]
+                points = [(s, lr, [s if sh else lr for sh in is_short]) for s, lr in sweep]
+            else:
+                points = [(None, None, params["bias"])]
+            for short_b, long_b, bias_vec in points:
+                seg = mws_segmentation(
+                    a,
+                    neighborhood=nbhd,
+                    bias=bias_vec,
+                    sigma=params.get("sigma"),
+                    noise_eps=params.get("noise_eps"),
+                    strides=params.get("strides"),
+                    randomized_strides=params.get("randomized_strides", False),
+                    remove_debris=params.get("remove_debris", 0),
+                )
+                key = "mws" if short_b is None else mws_sweep_label(short_b, long_b)
+                name = f"{prefix}/{key}"
+                _write_seg(name, seg, affs, total)
+                out[key] = name
+        else:
+            seg = cc_segmentation(
+                a, threshold=params.get("threshold", 0.5), remove_debris=params.get("remove_debris", 0)
+            )
+            name = f"{prefix}/cc--{_fmt_threshold(params.get('threshold', 0.5))}"
+            _write_seg(name, seg, affs, total)
+            out["cc"] = name
         results[volume_name] = out
     return results

@@ -1,5 +1,5 @@
 """Training workflow: TOML config -> training loop (the JAX package's
-``workflows/train.py`` for real samples, on one device).
+``workflows/train.py``, on one device).
 
 The config is the JAX package's ``[train]`` table: ``setup_dir`` (with its
 ``net_config.json``), ``samples`` (``raw``/``labels``/``mask`` datasets),
@@ -10,11 +10,13 @@ the operational surface: ``model_checkpoint_{iter}`` files in the JAX
 layout, auto-resume from the latest one, ``log/loss.jsonl`` every 10
 iterations, snapshot Zarrs, a host RSS cap and a stall watchdog.
 
-It trains the 3D and 2D image setups (affinities, LSDs or both; a 2D
-setup at batch 10 by default).  Not ported, and raised as
-``NotImplementedError`` where a config asks for them: synthetic training
-(``_from_`` setups, or no ``samples``), TPU folding (``fold_xy = true``)
-and the device ``mesh``.  The JAX package's fold probe, which turns
+It trains the 3D and 2D image setups on ``samples`` (affinities, LSDs
+or both; a 2D setup at batch 10 by default), and the ``_from_`` refiner
+setups, or any config without ``samples``, on synthetic labels
+(``pipeline/synthetic.py``; batch 1 and learning rate 1e-4 unless the
+config sets them).  Not ported, and raised as ``NotImplementedError``
+where a config asks for them: TPU folding (``fold_xy = true``) and the
+device ``mesh``.  The JAX package's fold probe, which turns
 folding on for a batch of 8 or more where a TPU compile of it passes, is
 TPU machinery: here a config without ``fold_xy`` trains unfolded at any
 batch, with no probe.  Its ``BS_INT8`` guard has nothing to guard here:
@@ -35,6 +37,7 @@ import torch
 from .. import resolve_device
 from ..core.arrays import open_ds, prepare_ds
 from ..models.model import Model
+from ..pipeline.synthetic import SyntheticTrainingPipeline
 from ..pipeline.training import SetupSpec, TrainingPipeline
 from ..train.loop import (
     create_train_state,
@@ -88,12 +91,7 @@ def setup_train(config_file: str, **overrides) -> dict:
     return cfg
 
 
-def _check_ported(cfg: dict, setup_name: str) -> None:
-    if "_from_" in setup_name or "samples" not in cfg:
-        raise NotImplementedError(
-            "synthetic training (SyntheticTrainingPipeline: _from_ setups or no samples) "
-            "is not ported yet"
-        )
+def _check_ported(cfg: dict) -> None:
     if cfg.get("fold_xy"):
         raise NotImplementedError("fold_xy: folded (TPU layout) training is not ported")
     if cfg.get("mesh", False):
@@ -108,7 +106,8 @@ def run_training(config_file: str, device=None, compute_dtype=torch.bfloat16, **
     cfg = setup_train(config_file, **overrides)
     setup_dir = cfg["setup_dir"]
     setup_name = os.path.basename(os.path.normpath(setup_dir))
-    _check_ported(cfg, setup_name)
+    _check_ported(cfg)
+    synthetic = "_from_" in setup_name or "samples" not in cfg
     voxel_size = cfg.get("voxel_size", [1, 1, 1])
     max_iterations = int(cfg.get("max_iterations", 30001))
     save_every = int(cfg.get("save_checkpoints_every", 5000))
@@ -116,18 +115,22 @@ def run_training(config_file: str, device=None, compute_dtype=torch.bfloat16, **
     batch_size = cfg.get("batch_size")
 
     model = Model.from_setup(setup_dir, compute_dtype=compute_dtype)
-    spec = SetupSpec(model.net_config, tuple(voxel_size))
-    samples = [Sample.open(s["raw"], s["labels"], s.get("mask")) for s in cfg["samples"]]
-    artifact_samples = None
-    if cfg.get("artifact_samples"):
-        # real-artifact blending: each entry names an intensities dataset
-        # and optionally its alpha mask
-        artifact_samples = [
-            (open_ds(a["artifacts"]), open_ds(a["artifacts_mask"]) if a.get("artifacts_mask") else None)
-            for a in cfg["artifact_samples"]
-        ]
+    if synthetic:  # refiners train on synthetic labels
+        lr = 1e-4
+    else:
+        spec = SetupSpec(model.net_config, tuple(voxel_size))
+        samples = [Sample.open(s["raw"], s["labels"], s.get("mask")) for s in cfg["samples"]]
+        artifact_samples = None
+        if cfg.get("artifact_samples"):
+            # real-artifact blending: each entry names an intensities
+            # dataset and optionally its alpha mask
+            artifact_samples = [
+                (open_ds(a["artifacts"]), open_ds(a["artifacts_mask"]) if a.get("artifacts_mask") else None)
+                for a in cfg["artifact_samples"]
+            ]
+        lr = spec.learning_rate
     model = model.to(dev)
-    state = create_train_state(model, cfg.get("seed", 0), cfg.get("learning_rate", spec.learning_rate))
+    state = create_train_state(model, cfg.get("seed", 0), cfg.get("learning_rate", lr))
     step_fn = make_train_step()
 
     ckpt = latest_checkpoint(setup_dir)
@@ -137,16 +140,21 @@ def run_training(config_file: str, device=None, compute_dtype=torch.bfloat16, **
         start_iter = int(state.step)
         logger.info("resuming from %s (iteration %d)", ckpt, start_iter)
 
-    pipeline = TrainingPipeline(
-        model.net_config,
-        voxel_size,
-        samples,
-        batch_size=batch_size,
-        min_masked=cfg.get("min_masked", 0.05),
-        artifact_samples=artifact_samples,
-        prob_artifact=cfg.get("prob_artifact", 0.05),
-        device=dev,
-    )
+    if synthetic:
+        pipeline = SyntheticTrainingPipeline(
+            model.net_config, voxel_size=voxel_size, batch_size=batch_size or 1, device=dev
+        )
+    else:
+        pipeline = TrainingPipeline(
+            model.net_config,
+            voxel_size,
+            samples,
+            batch_size=batch_size,
+            min_masked=cfg.get("min_masked", 0.05),
+            artifact_samples=artifact_samples,
+            prob_artifact=cfg.get("prob_artifact", 0.05),
+            device=dev,
+        )
 
     log_dir = os.path.join(setup_dir, "log")
     os.makedirs(log_dir, exist_ok=True)

@@ -112,7 +112,22 @@ Phases, each printing one JSON line:
     the steady train step.  Every K1 shape it launches (the 2D net's at
     batches of 10, 8, 32 and 64 sections, the refiner's 243-channel warm
     and steady shapes) is traced on the ``meta`` device, held against the
-    plain version and counted into the ``kernels`` line.
+    plain version and counted into the ``kernels`` line;
+(s) the synthetic refiners (``synth``), on the same sample: the shipped
+    3d_affs_from_2d_mtlsd and 3d_affs_from_3d_lsd checkpoints' bf16 loss,
+    forward only, over the port's ``SyntheticTrainingPipeline`` batches,
+    each held to its gate (SYNTH_FORWARD); ``run_training`` on a copy of
+    the first one's ``train.toml`` resumes from the shipped checkpoint and
+    trains SYNTH_ITERATIONS more, the mean loss of the last 20 held to
+    SYNTH_LAST20_MEAN; the steady step by parts and the host's draw of one
+    synthetic pair; then the GT's own 2D heads as the 2D link's outputs,
+    the refiner link predicted with the retrained checkpoint, and
+    ``run_segmentation`` in mws (defaults and SYNTH_BIAS_SWEEP), cc and ws
+    from the configs ``make_round_configs`` writes for each, scored by
+    ``run_evaluation`` (VOI); no mws or cc segmentation may be empty.  K1
+    at the refiners' training shapes (and ``Conv3dFunction`` in fp32 at the
+    widest of them) and on every prediction step is held against the plain
+    version and counted into the ``kernels`` line.
 
 Then the card's name and power limit as nvidia-smi reports them, the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -208,6 +223,28 @@ CHAIN_ITERATIONS = 20
 # package's default, 32, was its knee on a TPU)
 CHAIN2D_ITERATIONS = 20
 BATCH_TILES_SWEEP = (32, 8, 64)
+
+
+# the synthetic refiners (``synth``): each shipped refiner's bf16 loss,
+# forward only, over this many of the port's synthetic batches, and its
+# gates (the JAX package read mean 0.025 / median about 0.020 with
+# 3d_affs_from_2d_mtlsd over 30 batches, 0.022 / 0.020 with
+# 3d_affs_from_3d_lsd over 16, in a CPU run of its own pipeline on the
+# shipped checkpoints; a fresh net reads about 0.2); the iterations
+# 3d_affs_from_2d_mtlsd then trains on from its shipped checkpoint, the
+# gate on the mean loss of the last 20 of them, and the mws bias sweep's
+# (direct, long-range) points
+SYNTH_FORWARD = [
+    ("3d_affs_from_2d_mtlsd", 32, {"mean": 0.045, "median": 0.035}),
+    ("3d_affs_from_3d_lsd", 16, {"mean": 0.04}),
+]
+SYNTH_JAX_CPU = {
+    "3d_affs_from_2d_mtlsd": {"batches": 30, "mean": 0.025, "median": 0.020, "max": 0.086},
+    "3d_affs_from_3d_lsd": {"batches": 16, "mean": 0.022, "median": 0.020, "max": 0.038},
+}
+SYNTH_ITERATIONS = 40
+SYNTH_LAST20_MEAN = 0.06
+SYNTH_BIAS_SWEEP = [[-0.55, -0.8], [-0.7, -0.9]]
 
 
 # the streamed main path's volume: deeper than 96 slices and, at the plan's
@@ -1215,11 +1252,18 @@ def train_conv_keys(net_config: dict) -> set:
     return {conv_key(c) for c in train_conv_cases(net_config)}
 
 
-def check_conv_function(seed: int, device="cuda") -> list:
+FUNCTION_CASES = [
+    ("relu_300to300_k3", (1, 8, 30, 30, 300), None, (3, 3, 3, 300, 300), True),
+    ("residual_view_300to1500_k1", (1, 10, 36, 36, 300), (6, 28, 28), (1, 1, 1, 300, 1500), False),
+]
+
+
+def check_conv_function(seed: int, device="cuda", cases=FUNCTION_CASES) -> list:
     """``Conv3dFunction`` in fp32 on the card (the fp32 kernel forward, cuDNN
     backward in full fp32) against autograd through ``conv3d_plain``: output
     and dX, dW, db, each within FUNCTION_RTOL of the reference's largest
-    value.  Two shapes: ReLU fused, and a 1x1 residual on a cropped view."""
+    value.  ``cases``: ``(name, input shape, crop, weight shape, relu)``; by
+    default ReLU fused, and a 1x1 residual on a cropped view."""
     import torch
 
     from bootstrapper_torch.models.unet import center_crop
@@ -1230,10 +1274,7 @@ def check_conv_function(seed: int, device="cuda") -> list:
     gen = torch.Generator(device=device).manual_seed(seed)
     rows = []
     try:
-        for name, xs, crop, ws, relu in [
-            ("relu_300to300_k3", (1, 8, 30, 30, 300), None, (3, 3, 3, 300, 300), True),
-            ("residual_view_300to1500_k1", (1, 10, 36, 36, 300), (6, 28, 28), (1, 1, 1, 300, 1500), False),
-        ]:
+        for name, xs, crop, ws, relu in cases:
             base = C.empty_channels_last(xs, torch.float32, device)
             base.copy_(torch.randn(xs, generator=gen, device=device))
             x0 = base if crop is None else center_crop(base, crop)
@@ -1416,14 +1457,16 @@ def train_round(paths: dict, iterations, device="cuda") -> dict:
     }
 
 
-def time_train_step(net_config: dict, sample_root: str, voxel_size, seed: int, steps: int, device="cuda") -> dict:
+def time_train_step(net_config: dict, sample_root: str, voxel_size, seed: int, steps: int, device="cuda",
+                    pipe=None) -> dict:
     """The steady train step at the net's input shape, on the sample in
-    ``sample_root`` (Zarr with raw, labels and mask), by parts, over
-    ``steps`` steps after three warm ones: host wait on the loader (host
-    clock), then CUDA events around the device transform, forward, backward
-    and optimizer; the wall time per step; peak memory; then one step under
-    ``torch.profiler``: device time by group of its forward and its
-    backward, and the idle share of the whole step."""
+    ``sample_root`` (Zarr with raw, labels and mask) or from ``pipe`` (a
+    pipeline the step then stops), by parts, over ``steps`` steps after
+    three warm ones: host wait on the loader (host clock), then CUDA events
+    around the device transform, forward, backward and optimizer; the wall
+    time per step; peak memory; then one step under ``torch.profiler``:
+    device time by group of its forward and its backward, and the idle
+    share of the whole step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1433,8 +1476,9 @@ def time_train_step(net_config: dict, sample_root: str, voxel_size, seed: int, s
     from bootstrapper_torch.train.loop import create_train_state, loss_fn
     from bootstrapper_torch.train.sampler import Sample
 
-    sample = Sample(*(open_ds(os.path.join(sample_root, k)) for k in ("raw", "labels", "mask")))
-    pipe = TrainingPipeline(net_config, voxel_size, [sample], seed=seed, device=device)
+    if pipe is None:
+        sample = Sample(*(open_ds(os.path.join(sample_root, k)) for k in ("raw", "labels", "mask")))
+        pipe = TrainingPipeline(net_config, voxel_size, [sample], seed=seed, device=device)
     state = create_train_state(Model(net_config).to(device), seed, 0.5e-4)
     model, opt = state.model, state.optimizer
     names = ("transform", "forward", "backward", "optimizer")
@@ -2611,6 +2655,245 @@ def tile_2d(net_config: dict, inc) -> tuple:
     return (net_config.get("adj_slices", 1), *(a + b for a, b in zip(net_config["input_shape"], inc)))
 
 
+# -- (s) the synthetic refiners ---------------------------------------------
+
+
+def synth_forward_losses(setup_dir: str, batches: int, seed: int, stages: dict, name: str, device) -> tuple:
+    """The checkpoint in ``setup_dir`` (a refiner's shipped one) in bf16,
+    forward only, over ``batches`` batches of the port's
+    ``SyntheticTrainingPipeline`` at the voxel size of the setup's
+    ``train.toml``: the loss per batch, their mean, median and max, and the
+    shipped training log's last 100 entries beside them.  Returns the line
+    and the forward's kernel-route convs (traced on ``meta``)."""
+    import torch
+
+    from bootstrapper_torch.models import Model, load_checkpoint, load_params
+    from bootstrapper_torch.models.weights import latest_checkpoint
+    from bootstrapper_torch.pipeline.synthetic import SyntheticTrainingPipeline, input_channels
+    from bootstrapper_torch.train.loop import loss_fn
+    from bootstrapper_torch.utils import tomlio
+
+    nc = Model.from_setup(setup_dir).net_config
+    ckpt = latest_checkpoint(setup_dir)
+    vs = tomlio.load(os.path.join(setup_dir, "train.toml"))["train"]["voxel_size"]
+    model = load_params(Model(nc), load_checkpoint(ckpt)).to(device).eval()
+    pipe = SyntheticTrainingPipeline(nc, vs, seed=seed, device=device)
+
+    def run():
+        with torch.no_grad():
+            return [loss_fn(model, pipe.next_batch()) for _ in range(batches)]
+
+    try:
+        losses = [float(v) for v in stage(stages, name, run)]
+    finally:
+        pipe.stop()
+    out = {
+        "checkpoint": os.path.basename(ckpt), "voxel_size": vs, "batches": batches, "seed": seed,
+        "mean": float(np.mean(losses)), "median": float(np.median(losses)), "max": float(np.max(losses)),
+        "losses": losses, "seconds": stages[name]["seconds"],
+    }
+    log = os.path.join(setup_dir, "log", "loss.jsonl")
+    if os.path.exists(log):
+        shipped = [json.loads(line)["loss"] for line in open(log)][-100:]
+        out["shipped_log_last_100"] = {
+            "mean": float(np.mean(shipped)), "median": float(np.median(shipped)), "max": float(np.max(shipped)),
+        }
+    cases = traced_cases(f"synth_{os.path.basename(setup_dir)}", nc, (1, *nc["input_shape"], input_channels(nc)))
+    return out, cases
+
+
+def synth_phase(work: str, volumes: dict, seed: int, shipped: dict, iterations: int, timed_steps: int,
+                device="cuda") -> tuple:
+    """The refiners' synthetic training on the card, and the retrained
+    refiner through predict, segment (mws, its bias sweep, cc, ws) and
+    evaluate.  ``shipped`` maps each refiner of SYNTH_FORWARD to its shipped
+    setup dir.  (a) Each shipped checkpoint's bf16 loss, forward only, over
+    the port's synthetic batches, held to SYNTH_FORWARD's gates; (b)
+    ``run_training`` on a copy of 3d_affs_from_2d_mtlsd's ``train.toml``
+    resumes from the shipped checkpoint and trains ``iterations`` more at
+    batch 1 (the loss of each iteration recorded; the mean of the last 20
+    held to SYNTH_LAST20_MEAN); (c) the steady step by parts and the host
+    draw of one synthetic pair; (d) on the Voronoi sample of ``volumes``,
+    the GT's own 2D heads written as the 2D link's outputs, the refiner link
+    predicted with the retrained checkpoint, then ``run_segmentation`` in
+    mws (defaults, and a SYNTH_BIAS_SWEEP), cc and ws from the configs
+    ``make_round_configs`` writes for each method, and ``run_evaluation`` by
+    VOI: each mode's seconds, segments and VOI; every mws and cc
+    segmentation must be non-empty.  Launch counts: K1 at each training
+    convs once per iteration (and per forward-only batch), on every
+    prediction step; K2 in the ws segment.  Returns the phase's line and
+    its K1 launch groups."""
+    import shutil
+
+    from bootstrapper_torch import configs
+    from bootstrapper_torch.core.arrays import open_ds, prepare_ds
+    from bootstrapper_torch.models import Model
+    from bootstrapper_torch.models.weights import latest_checkpoint
+    from bootstrapper_torch.models.zoo import get_net_config
+    from bootstrapper_torch.pipeline.synthetic import SyntheticTrainingPipeline, input_channels
+    from bootstrapper_torch.train.synth import synthetic_pair
+    from bootstrapper_torch.utils import tomlio
+    from bootstrapper_torch.workflows import run_evaluation, run_prediction, run_segmentation, run_training
+    from bootstrapper_torch.workflows import train as train_workflow
+
+    stages: dict = {}
+    out: dict = {"forward_only": {}}
+    groups = []
+    # (a) the shipped weights on the port's synthetic inputs
+    for i, (name, batches, gates) in enumerate(SYNTH_FORWARD):
+        line, cases = synth_forward_losses(shipped[name], batches, seed + 2 * i, stages, f"forward_{name}", device)
+        line["gates"], line["jax_cpu"] = gates, SYNTH_JAX_CPU[name]
+        out["forward_only"][name] = line
+        if any(line[k] > v for k, v in gates.items()):
+            raise AssertionError(f"{name}: the shipped weights' loss on the port's synthetic batches: {line}")
+        groups.append(launch_group(stages[f"forward_{name}"], cases))
+
+    # the round's configs, one per segmentation method: the 2D link's
+    # outputs named as iteration 0 (the GT's own heads go there), the
+    # refiner's as the iteration its training ends at
+    name, vol = "3d_affs_from_2d_mtlsd", volumes["vol"]
+    start = int(os.path.basename(latest_checkpoint(shipped[name])).rsplit("_", 1)[1])
+    names, its = ["2d_mtlsd", name], [0, start + iterations]
+    rounds = {
+        m: configs.make_round_configs(
+            os.path.join(work, f"synth_{m}"), volumes, names, iterations=its, segment_method=m,
+            gt_labels=vol["labels_dataset"],
+        )
+        for m in ("mws", "cc", "ws")
+    }
+    paths = rounds["mws"]
+    # the shipped setup over the one the round installed
+    refiner_dir = os.path.join(work, "synth_mws", "setups", name)
+    for f in ("net_config.json", "train.toml", os.path.basename(latest_checkpoint(shipped[name]))):
+        shutil.copy2(os.path.join(shipped[name], f), os.path.join(refiner_dir, f))
+    nc = Model.from_setup(refiner_dir).net_config
+
+    # (b) resumed synthetic training through the entry point
+    cfg = tomlio.load(os.path.join(refiner_dir, "train.toml"))["train"]
+    cfg.update(setup_dir=refiner_dir, max_iterations=start + iterations)
+    toml = os.path.join(work, "synth_train.toml")
+    tomlio.dump({"train": cfg}, toml)
+    real_step, losses = train_workflow.make_train_step, []
+
+    def recording_step():  # the loss of every iteration, read after the run
+        step = real_step()
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+            return state, metrics
+
+        return run
+
+    train_workflow.make_train_step = recording_step
+    try:
+        train = stage(stages, "train", lambda: run_training(toml, device=device))
+    finally:
+        train_workflow.make_train_step = real_step
+    losses = [float(v) for v in losses]
+    log = [json.loads(line) for line in open(os.path.join(refiner_dir, "log", "loss.jsonl"))]
+    if train["iterations"] != start + iterations or len(losses) != iterations:
+        raise AssertionError(f"synthetic training did not resume at {start}: {train}, {len(losses)} steps")
+    if not train["checkpoint"].endswith(f"model_checkpoint_{start + iterations}"):
+        raise AssertionError(f"synthetic training's checkpoint: {train['checkpoint']}")
+    last20 = float(np.mean(losses[-20:]))
+    out["train"] = {
+        "resumed_at": start, "iterations": iterations, "batch": 1, "voxel_size": cfg["voxel_size"],
+        "losses": losses, "log": log, "first_10_mean": float(np.mean(losses[:10])),
+        "last_20_mean": last20, "gate": SYNTH_LAST20_MEAN, "seconds": stages["train"]["seconds"],
+        "checkpoint": os.path.basename(train["checkpoint"]),
+    }
+    if not last20 <= SYNTH_LAST20_MEAN:
+        raise AssertionError(f"resumed synthetic training: last 20 iterations' mean loss {last20}: {out['train']}")
+    train_cases = traced_cases("synth_train", nc, (1, *nc["input_shape"], input_channels(nc)))
+    groups.append(launch_group(stages["train"], train_cases))
+
+    # (c) the steady step, and the host's draw of one pair
+    t0 = time.perf_counter()
+    for i in range(4):
+        synthetic_pair(np.random.default_rng(seed + i), shape=tuple(nc["input_shape"]))
+    out["host_draw_ms_per_sample"] = (time.perf_counter() - t0) * 1e3 / 4
+    if device == "cuda":
+        pipe = SyntheticTrainingPipeline(nc, cfg["voxel_size"], seed=seed, device=device)
+        out["step"] = time_train_step(nc, None, None, seed, timed_steps, device, pipe=pipe)
+
+    # (d) predict with the retrained refiner on the GT's own 2D heads
+    labels = open_ds(vol["labels_dataset"])
+    links = tomlio.load(paths["predict"])["predict"]["vol"]["chain"]
+    nc2d = get_net_config("2d_mtlsd")
+    heads = {}
+    for head, head_cfg in nc2d["outputs"].items():
+        c = len(head_cfg["neighborhood"]) if "neighborhood" in head_cfg else head_cfg["dims"]
+        heads[head] = prepare_ds(
+            os.path.join(vol["output_container"], links[0]["output_prefix"], head), (c, *labels.shape),
+            labels.roi.offset, labels.voxel_size, np.uint8,
+        )
+    t0 = time.perf_counter()
+    write_gt_2d(labels, heads["2d_affs"], heads["2d_lsds"], nc2d, device)
+    out["write_gt_2d_seconds"] = time.perf_counter() - t0
+    stats = stage(stages, "predict", lambda: run_prediction(paths["predict"], setup_id=name, device=device))
+    pstats = stats[f"vol/{links[1]['output_prefix']}"]
+    affs = open_ds(os.path.join(vol["output_container"], links[1]["output_prefix"], "3d_affs"))
+    out["predict"] = {k: v for k, v in pstats.items() if k != "plan"}
+    out["affs_mean"] = float(affs.to_ndarray().mean())
+
+    # segment by each method from its round's configs, and score by VOI
+    segment_runs = [
+        ("mws", "mws", ()), ("mws_sweep", "mws", (f"bias_sweep={SYNTH_BIAS_SWEEP}",)), ("cc", "cc", ()),
+        ("ws", "ws", ()),
+    ]
+    out["segment"] = {}
+    for key, method, overrides in segment_runs:
+        segs = stage(stages, f"segment_{key}", lambda: run_segmentation(
+            rounds[method]["segment"], mode=method, param_overrides=overrides, device=device))["vol"]
+        out["segment"][key] = {
+            "seconds": stages[f"segment_{key}"]["seconds"],
+            "segments": {os.path.basename(p): int(len(np.unique(open_ds(p).to_ndarray())) - 1) for p in segs.values()},
+        }
+    for method in ("mws", "cc", "ws"):
+        voi = stage(stages, f"evaluate_{method}", lambda: run_evaluation(rounds[method]["evaluate"], device=device))
+        out["segment"][method]["evaluate_seconds"] = stages[f"evaluate_{method}"]["seconds"]
+        out["segment"][method]["voi"] = {os.path.basename(p): e["voi"] for p, e in voi["vol"].items()}
+    out["segment"]["mws_sweep"]["voi"] = {
+        k: v for k, v in out["segment"]["mws"]["voi"].items() if k in out["segment"]["mws_sweep"]["segments"]
+    }
+    empty = [
+        (k, d) for k in ("mws", "mws_sweep", "cc") for d, n in out["segment"][k]["segments"].items() if n < 1
+    ]
+    if empty or len(out["segment"]["mws_sweep"]["segments"]) != len(SYNTH_BIAS_SWEEP):
+        raise AssertionError(f"synth: empty or missing mws/cc segmentations {empty}: {out['segment']}")
+    out["stage_seconds"] = {k: v["seconds"] for k, v in stages.items()}
+    out["launches"] = {k: v["launches"] for k, v in stages.items()}
+    if device != "cuda":
+        return out, []
+
+    # every K1 launch where it belongs: the forward-only batches and the
+    # training at the training shapes, the prediction on every step
+    for (refiner, batches, _), group in zip(SYNTH_FORWARD, groups):
+        check_launches(f"synth forward {refiner}", group["by_conv"], [(group["cases"], batches)])
+    check_launches("synth train", stages["train"]["conv_launches"], [(train_cases, iterations)])
+    out["train"]["conv_launches"] = sum(stages["train"]["conv_launches"].values())
+    warm, steady = trace_stream_convs(nc, [pstats["step_z"], *pstats["input_tile"][1:]], pstats["warm_step_z"])
+    check_stream_launches("synth predict", stages["predict"]["conv_launches"], warm, steady, pstats)
+    predict_cases = [
+        (f"synth_refiner_{phase}_{i}_{c[2][3]}to{c[2][4]}_k{c[2][0]}", *c)
+        for phase, traced in (("warm", warm), ("steady", steady)) for i, c in enumerate(traced)
+    ]
+    groups.append(launch_group(stages["predict"], predict_cases))
+    out["seed_launches"] = stages["segment_ws"]["launches"]["seed_maxima.kernel"]
+    if out["seed_launches"] < 1 or any(
+        stages[f"segment_{k}"]["launches"]["seed_maxima.kernel"] for k in ("mws", "mws_sweep", "cc")
+    ):
+        raise AssertionError(f"synth segment: the seed kernel ran in {out['launches']}")
+    # Conv3dFunction in fp32 at the widest refiner conv of the training,
+    # without a fused ReLU: among its 470k outputs one lies within the
+    # kernel's fp32 rounding of 0 now and then, and the ReLU mask then
+    # moves dX, dW and db by that voxel's gradient (1e-2 of their largest)
+    widest = max(train_cases, key=lambda c: c[3][3] * c[3][4] * np.prod(c[3][:3]))
+    out["function_fp32"] = check_conv_function(seed, device, [(widest[0], *widest[1:4], False)])
+    return out, groups
+
+
 def merge_launches(rows: list, groups, seed: int) -> int:
     """Adds each group's K1 launches to the row of its conv; a conv no row
     holds yet is held against its plain version (``check_conv``, the
@@ -2644,6 +2927,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from bootstrapper_torch import native
     from bootstrapper_torch.__main__ import doctor
+    from bootstrapper_torch.configs import pretrained_dir
     from bootstrapper_torch.models import Model, init_params_numpy, load_params
     from bootstrapper_torch.models.zoo import get_net_config
     from bootstrapper_torch.ops import _build, launch_counts
@@ -2811,6 +3095,13 @@ def main(argv=None) -> int:
             work, volumes, args.seed, get_net_config("2d_mtlsd"), CHAIN2D_ITERATIONS, TIMED_STEPS
         )
         emit({"phase": "chain2d", "nvidia_smi": smi, **chain2d})
+        # the refiners' synthetic training, the retrained refiner through
+        # predict, mws / cc / ws segment and evaluate on the same sample
+        synth, synth_groups = synth_phase(
+            work, volumes, args.seed, {name: os.path.join(pretrained_dir(), name) for name, _, _ in SYNTH_FORWARD},
+            SYNTH_ITERATIONS, TIMED_STEPS,
+        )
+        emit({"phase": "synth", "nvidia_smi": smi, **synth})
     # the stream against the tiled path at its own xy tile, and the share of
     # voxels that differ from the zoo-tiled path, seams included
     vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
@@ -2829,9 +3120,13 @@ def main(argv=None) -> int:
     )
     # the LSD phases' launches, on the rows of their convs (new convs, the
     # refiner's, held against plain here)
-    conv_launches += merge_launches(conv_rows, mtlsd_groups + chain_groups + chain2d_groups, args.seed)
+    conv_launches += merge_launches(
+        conv_rows, mtlsd_groups + chain_groups + chain2d_groups + synth_groups, args.seed
+    )
     # their segments run K2 at the round's (64,512,512) stack
-    lsd_seed_launches = mtlsd["seed_launches"] + chain["seed_launches"] + chain2d["seed_launches"]
+    lsd_seed_launches = (
+        mtlsd["seed_launches"] + chain["seed_launches"] + chain2d["seed_launches"] + synth["seed_launches"]
+    )
     round_seed_rows[0]["launches"] += lsd_seed_launches
     seed_launches += stream_seed + sum(round_line["seed_launches"].values()) + lsd_seed_launches
     seed_rows += round_seed_rows
