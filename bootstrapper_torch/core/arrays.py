@@ -19,6 +19,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -132,7 +133,8 @@ class ZarrStore:
                 np.empty(self.chunks, self.dtype) if full else self._read_chunk(idx)
             )
             chunk[src] = value[dst]
-            tmp = f"{self._chunk_file(idx)}.{os.getpid()}.tmp"
+            # one name per writer: threads of one process write too
+            tmp = f"{self._chunk_file(idx)}.{os.getpid()}.{threading.get_ident()}.tmp"
             chunk.tofile(tmp)
             os.replace(tmp, self._chunk_file(idx))
 
@@ -265,8 +267,12 @@ def _normalize_attrs(attrs: dict, ndim: int) -> dict:
     return out
 
 
-def open_ds(path: str) -> Array:
-    """Open an existing uncompressed Zarr v2 array with world metadata."""
+def open_ds(path: str, mode: str = "r") -> Array:
+    """Open an existing uncompressed Zarr v2 array with world metadata.
+    ``mode`` is the JAX package's (``"r"`` or ``"r+"``); the port's arrays
+    are written through the same store either way."""
+    if mode not in ("r", "r+"):
+        raise ValueError(f"open_ds mode must be 'r' or 'r+', got {mode!r}")
     path = os.path.abspath(path).rstrip("/")
     store = ZarrStore(path)
     attrs = _normalize_attrs(_read_attrs(path), len(store.shape))

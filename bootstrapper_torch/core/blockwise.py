@@ -1,6 +1,7 @@
 """Blockwise task engine: ROI decomposition, wave scheduling, retries
-(a copy of the JAX package's ``core/blockwise.py``, without its
-subprocess runner and its host-only worker environment).
+(a copy of the JAX package's ``core/blockwise.py``; its host-only worker
+environment is replaced by ``worker_env``, which only puts the repo root
+on ``PYTHONPATH``).
 
 The daisy replacement (reference usage: ``bootstrapper/predict.py:20-44``,
 ``post/blockwise/*``, ``data/{mask,clahe,scale_pyramid,merge}.py``).
@@ -34,11 +35,12 @@ import logging
 import os
 import socket
 import sqlite3
+import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -517,6 +519,79 @@ def run_blockwise(
         time.perf_counter() - t0,
         errors,
     )
+
+
+def worker_env(base: Optional[dict] = None) -> dict:
+    """Subprocess environment for sharded workers: the caller's, with the
+    repo root on ``PYTHONPATH`` so workers import the package from any
+    working directory.  Nothing else changes: a worker computes where its
+    caller asked (seeds on the card unless ``"cpu"`` was asked for)."""
+    env = dict(os.environ if base is None else base)
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    parts = [os.path.dirname(pkg_root)] + [
+        p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p
+    ]
+    env["PYTHONPATH"] = os.pathsep.join(parts)
+    return env
+
+
+def run_sharded_subprocesses(
+    make_argv: Callable[[int, int], List[str]],
+    num_workers: int,
+    max_restarts: int = 2,
+    env: Optional[dict] = None,
+    poll: float = 0.5,
+) -> None:
+    """Crash-isolated multi-process runner (the daisy worker-pool analog,
+    reference ``bootstrapper/predict.py:27-50``).
+
+    Spawns ``num_workers`` subprocesses, worker *i* running
+    ``make_argv(i, num_workers)`` — typically the same CLI command with
+    ``block_offset=i`` / ``block_stride=num_workers`` and a shared
+    ledger.  A worker that dies (crash, segfault, OOM-kill) is respawned
+    up to ``max_restarts`` times; the ledger makes the re-run skip
+    completed blocks.  Raises if any shard ultimately fails."""
+    procs = {}
+    restarts = {i: 0 for i in range(num_workers)}
+    failed = {}
+
+    def spawn(i):
+        argv = make_argv(i, num_workers)
+        logger.info("worker %d: spawning %s", i, argv)
+        procs[i] = subprocess.Popen(argv, env=env)
+
+    for i in range(num_workers):
+        spawn(i)
+    try:
+        while procs:
+            time.sleep(poll)
+            for i, p in list(procs.items()):
+                rc = p.poll()
+                if rc is None:
+                    continue
+                del procs[i]
+                if rc == 0:
+                    continue
+                if restarts[i] < max_restarts:
+                    restarts[i] += 1
+                    logger.warning(
+                        "worker %d exited rc=%d; restart %d/%d",
+                        i, rc, restarts[i], max_restarts,
+                    )
+                    spawn(i)
+                else:
+                    failed[i] = rc
+            if failed:
+                break  # kill remaining workers: they may barrier-wait on
+                # blocks the failed shard will never finish
+    finally:
+        for p in procs.values():
+            p.terminate()
+    if failed:
+        raise RuntimeError(
+            f"sharded workers failed after retries: {failed} "
+            f"(restarts: { {i: n for i, n in restarts.items() if n} })"
+        )
 
 
 def run_blockwise_or_raise(task: BlockwiseTask, **kw) -> TaskResult:

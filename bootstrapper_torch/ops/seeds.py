@@ -18,14 +18,17 @@ the y pass in registers, larger ones take the general body);
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-#: CUDA launches of the seed kernel
+#: CUDA launches of the seed kernel (added to under ``_COUNT_LOCK``: the
+#: blockwise pipelines launch from several threads)
 COUNTS = {"kernel": 0}
+_COUNT_LOCK = threading.Lock()
 
 #: what the last launch took: bytes per copy of fp32 distances (16, 8 or 4,
 #: by the row length and the base address), the body ("registers" or
@@ -98,12 +101,18 @@ def _seed_maxima_cuda(dist, mask, size):
         raise RuntimeError(
             f"seed kernel launch failed: cudaError {err} (size {size}, stack {(z, h, w)})"
         )
-    COUNTS["kernel"] += 1
+    count_launch()
     LAST_PLAN.update(
         copy_bytes=4 * plan[0], body="general" if plan[1] else "registers",
         rows_per_warp=plan[2],
     )
     return out
+
+
+def count_launch() -> None:
+    """One more launch of the kernel, from whichever thread."""
+    with _COUNT_LOCK:
+        COUNTS["kernel"] += 1
 
 
 _INITIALISED: set = set()

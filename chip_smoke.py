@@ -127,7 +127,22 @@ Phases, each printing one JSON line:
     ``run_evaluation`` (VOI); no mws or cc segmentation may be empty.  K1
     at the refiners' training shapes (and ``Conv3dFunction`` in fp32 at the
     widest of them) and on every prediction step is held against the plain
-    version and counted into the ``kernels`` line.
+    version and counted into the ``kernels`` line;
+(w) blockwise segmentation (``blockwise``), after ``synth``: a Voronoi
+    volume of BLOCKWISE_VOLUME (the CREMI sample size) made on the card,
+    its 3 direct affinities written as uint8 with seeded noise, segmented
+    by ``run_segmentation(mode="ws", blockwise=True)`` at the default
+    block and context on BLOCKWISE_NUM_WORKERS threads: seconds by stage,
+    K2 once per block (launches counted, must equal the blocks), K2's and
+    the copies' device time from ``torch.profiler``, the wall time of each
+    ``device_seed_maxima`` call, RAG size, VOI at BLOCKWISE_THRESHOLDS,
+    peak host RSS.  Then on ``synth``'s 9-channel affinities, 8 blocks:
+    mws with SYNTH_BIAS_SWEEP as its global sweep (its VOI beside the
+    in-memory mws's), cc (must equal in-memory ``cc_segmentation``: same
+    partition and background), ws sharded over 2 worker processes with a
+    ledger (must equal one process's fragments and partitions).  K2 is
+    held bit-exact at the block shape in (b), and the phase's launches
+    are counted on that row of the ``kernels`` line.
 
 Then the card's name and power limit as nvidia-smi reports them, the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -138,6 +153,7 @@ device and the bootstrapper_torch package beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -244,6 +260,14 @@ SYNTH_JAX_CPU = {
 }
 SYNTH_ITERATIONS = 40
 SYNTH_LAST20_MEAN = 0.06
+# the blockwise phase: ws at the CREMI sample size, 4 x 5 x 5 blocks of the
+# pipelines' default (32,256,256) (read with their (2,32,32) context), on
+# uint8 affinities of a Voronoi volume with seeded noise
+BLOCKWISE_VOLUME = (125, 1250, 1250)
+BLOCKWISE_THRESHOLDS = [0.35, 0.5]
+BLOCKWISE_NUM_WORKERS = 8
+BLOCKWISE_NOISE = 0.15
+BLOCKWISE_BLOCK = (32, 256, 256)
 SYNTH_BIAS_SWEEP = [[-0.55, -0.8], [-0.7, -0.9]]
 
 
@@ -556,6 +580,8 @@ SEED_CASES = [
     ("stack_125x1250x1250_size10", (125, 1250, 1250), 10),
     # a window past the register body's 16: the general body
     ("stack_8x640x640_size33", (8, 640, 640), 33),
+    # a blockwise ws block with its context at the pipelines' defaults
+    ("block_36x320x320_size10", (36, 320, 320), 10),
 ]
 
 
@@ -1141,6 +1167,10 @@ def tile_breakdown(net_config: dict, params, seed: int) -> dict:
 # -- (t) the training slice ------------------------------------------------
 
 
+#: distances computed at once in ``voronoi_sample`` (fp32, 1 GB)
+VORONOI_ELEMENTS = 2**28
+
+
 def voronoi_sample(shape, n_cells: int, seed: int, device) -> dict:
     """A synthetic training sample made from ``seed`` on ``device``: Voronoi
     labels (z distances weighted 10x, as 40 nm sections against 4 nm
@@ -1159,13 +1189,14 @@ def voronoi_sample(shape, n_cells: int, seed: int, device) -> dict:
         indexing="ij",
     )
     labels = torch.empty(shape, dtype=torch.int64, device=device)
+    # rows at a time: a CREMI-sized section against its thousands of cells
+    # would take tens of GB of distances at once
+    rows = max(1, VORONOI_ELEMENTS // (shape[2] * n_cells))
     for z in range(shape[0]):
-        d = (
-            ((z - pts[:, 0]) * 10.0) ** 2
-            + (yy.reshape(-1, 1) - pts[:, 1]) ** 2
-            + (xx.reshape(-1, 1) - pts[:, 2]) ** 2
-        )
-        labels[z] = ids[d.argmin(1)].reshape(shape[1:])
+        for y0 in range(0, shape[1], rows):
+            yc, xc = yy[y0 : y0 + rows].reshape(-1, 1), xx[y0 : y0 + rows].reshape(-1, 1)
+            d = ((z - pts[:, 0]) * 10.0) ** 2 + (yc - pts[:, 1]) ** 2 + (xc - pts[:, 2]) ** 2
+            labels[z, y0 : y0 + rows] = ids[d.argmin(1)].reshape(-1, shape[2])
     edge = torch.zeros(shape, dtype=torch.bool, device=device)
     edge[:, 1:] |= labels[:, 1:] != labels[:, :-1]
     edge[:, :, 1:] |= labels[:, :, 1:] != labels[:, :, :-1]
@@ -2836,6 +2867,7 @@ def synth_phase(work: str, volumes: dict, seed: int, shipped: dict, iterations: 
     affs = open_ds(os.path.join(vol["output_container"], links[1]["output_prefix"], "3d_affs"))
     out["predict"] = {k: v for k, v in pstats.items() if k != "plan"}
     out["affs_mean"] = float(affs.to_ndarray().mean())
+    out["affs_dataset"] = affs.path
 
     # segment by each method from its round's configs, and score by VOI
     segment_runs = [
@@ -2893,6 +2925,334 @@ def synth_phase(work: str, volumes: dict, seed: int, shipped: dict, iterations: 
     out["function_fp32"] = check_conv_function(seed, device, [(widest[0], *widest[1:4], False)])
     return out, groups
 
+
+# -- the blockwise phase ---------------------------------------------------
+
+WS_STAGES = {
+    "fragments": "extract_fragments_blockwise", "agglomerate": "agglomerate_blockwise",
+    "luts": "find_segments", "extract": "extract_segmentation_blockwise",
+}
+MWS_STAGES = {
+    "fragments": "extract_fragments_blockwise", "agglomerate": "mws_agglomerate_blockwise",
+    "luts": "global_mutex_segments", "extract": "extract_segmentation_blockwise",
+}
+
+
+@contextlib.contextmanager
+def timed_stages(module, stages: dict, log: dict):
+    """Within the block, each function of ``module`` named by ``stages``
+    (``{stage: function name}``; the pipelines look them up in the module)
+    adds its seconds to ``log[stage]``."""
+    real = {k: getattr(module, name) for k, name in stages.items()}
+
+    def timed(stage_name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                log[stage_name] = log.get(stage_name, 0.0) + time.perf_counter() - t0
+
+        return run
+
+    for k, fn in real.items():
+        setattr(module, stages[k], timed(k, fn))
+    try:
+        yield log
+    finally:
+        for k, fn in real.items():
+            setattr(module, stages[k], fn)
+
+
+@contextlib.contextmanager
+def recorded_seed_calls(calls: list):
+    """Within the block, every ``post/fragments.py:device_seed_maxima``
+    call appends ``(stack shape, wall ms)`` to ``calls``, from whichever
+    thread."""
+    from bootstrapper_torch.post import fragments
+
+    real = fragments.device_seed_maxima
+
+    def run(dist_stack, mask_stack, size, device):
+        t0 = time.perf_counter()
+        out = real(dist_stack, mask_stack, size, device)
+        calls.append((tuple(dist_stack.shape), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    fragments.device_seed_maxima = run
+    try:
+        yield calls
+    finally:
+        fragments.device_seed_maxima = real
+
+
+def rss_gib() -> float:
+    """The process's resident set now (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+@contextlib.contextmanager
+def sampled_peak_rss(out: dict, every: float = 0.05):
+    """Within the block, a thread samples ``rss_gib`` every ``every`` s;
+    after it, ``out["peak_rss_gib"]`` holds the largest sample and
+    ``out["max_rss_gib_process"]`` the process's peak since it started
+    (``getrusage``)."""
+    import resource
+    import threading
+
+    samples = [rss_gib()]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(every):
+            samples.append(rss_gib())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+        samples.append(rss_gib())
+        out["peak_rss_gib"] = max(samples)
+        out["max_rss_gib_process"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def seed_device_ms(prof) -> dict:
+    """The seed kernel's and the copies' device ms in a profile."""
+    import torch
+
+    out = {"kernel": 0.0, "kernel_launches": 0, "copies": 0.0, "other": 0.0}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3
+        if "seed_" in ev.name and "kernel" in ev.name:
+            out["kernel"] += ms
+            out["kernel_launches"] += 1
+        elif "memcpy" in ev.name.lower():
+            out["copies"] += ms
+        else:
+            out["other"] += ms
+    return out
+
+
+def write_blockwise_volume(path: str, shape, seed: int, device) -> np.ndarray:
+    """A Voronoi label volume of ``shape`` (``voronoi_sample`` on the card)
+    and its 3 direct affinities, their boundaries grown by one voxel in xy
+    (as the nets' targets) and seeded noise added, written to ``path`` as
+    uint8 (``round(clip(a) * 255)``, as ``predict`` writes them).  Returns
+    the labels."""
+    import torch
+
+    from bootstrapper_torch.core.arrays import prepare_ds
+    from bootstrapper_torch.ops.affinities import grow_boundary, seg_to_affs
+
+    labels = voronoi_sample(shape, max(8, int(np.prod(shape) // 40_000)), seed, device)["labels"]
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    grown = grow_boundary(torch.from_numpy(labels.view(np.int64)).to(device), steps=1, only_xy=True)
+    affs = seg_to_affs(grown, [[-1, 0, 0], [0, -1, 0], [0, 0, -1]])
+    del grown
+    affs += BLOCKWISE_NOISE * torch.randn(affs.shape, generator=gen, device=device)
+    affs = (affs.clamp_(0, 1) * 255).round_().to(torch.uint8).cpu().numpy()
+    ds = prepare_ds(path, affs.shape, (0, 0, 0), (40, 4, 4), np.uint8)
+    ds[ds.roi] = affs
+    return labels
+
+
+def segment_toml(path: str, affs_path: str, container: str, mode: str, **cfg) -> str:
+    """A one-volume segment config whose outputs go to ``container``."""
+    from bootstrapper_torch.utils import tomlio
+
+    tomlio.dump(
+        {"segment": {"vol": {
+            "affs_dataset": affs_path, "seg_dataset_prefix": os.path.join(container, f"segmentations_{mode}"),
+            "blockwise": True, **cfg,
+        }}},
+        path,
+    )
+    return path
+
+
+def blockwise_full_scale(work: str, shape, seed: int, device) -> dict:
+    """(1) ws through ``run_segmentation(blockwise=True)`` on a Voronoi
+    volume of ``shape``: the default block and context, BLOCKWISE_NUM_WORKERS
+    threads, BLOCKWISE_THRESHOLDS.  Seconds by stage, K2's launches (one per
+    block), its device time and the copies' from ``torch.profiler`` (device
+    events only), the wall time of each ``device_seed_maxima`` call, RAG
+    size, VOI against the labels and the peak host RSS."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.eval.voi import rand_voi
+    from bootstrapper_torch.post import blockwise_seg
+    from bootstrapper_torch.post.rag import RagDB
+    from bootstrapper_torch.workflows import run_segmentation
+
+    out: dict = {"volume": list(shape), "block": list(BLOCKWISE_BLOCK), "num_workers": BLOCKWISE_NUM_WORKERS}
+    t0 = time.perf_counter()
+    affs_path = os.path.join(work, "full.zarr", "affs")
+    labels = write_blockwise_volume(affs_path, shape, seed, device)
+    out["write_volume_seconds"] = time.perf_counter() - t0
+    container = os.path.join(work, "full.zarr", "post")
+    toml = segment_toml(
+        os.path.join(work, "full_segment.toml"), affs_path, container, "ws",
+        ws_params={"thresholds": BLOCKWISE_THRESHOLDS},
+    )
+    stages: dict = {}
+    by_stage: dict = {}
+    calls: list = []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(sampled_peak_rss(out))
+        stack.enter_context(timed_stages(blockwise_seg, WS_STAGES, by_stage))
+        stack.enter_context(recorded_seed_calls(calls))
+        prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA])) if device == "cuda" else None
+        segs = stage(stages, "ws", lambda: run_segmentation(
+            toml, mode="ws", blockwise=True, num_workers=BLOCKWISE_NUM_WORKERS, device=device))["vol"]
+        if device == "cuda":
+            torch.cuda.synchronize()
+    out["seconds"] = stages["ws"]["seconds"]
+    out["stage_seconds"] = by_stage
+    grid = [-(-n // b) for n, b in zip(shape, BLOCKWISE_BLOCK)]
+    out["blocks"] = int(np.prod(grid))
+    out["seed_launches"] = stages["ws"]["launches"]["seed_maxima.kernel"]
+    wall = np.array([ms for _, ms in calls])
+    out["seed_calls"] = {
+        "calls": len(calls),
+        "stacks": {"x".join(map(str, k)): sum(1 for c in calls if c[0] == k) for k in sorted({c[0] for c in calls})},
+        "wall_ms_sum": float(wall.sum()), "wall_ms_mean": float(wall.mean()), "wall_ms_max": float(wall.max()),
+    }
+    if prof is not None:
+        dev = seed_device_ms(prof)
+        out["seed_calls"].update(
+            kernel_device_ms_sum=dev["kernel"], kernel_events=dev["kernel_launches"],
+            copies_device_ms_sum=dev["copies"], other_device_ms_sum=dev["other"],
+            # the call's wall time around its kernel: copies, conversions,
+            # and waits behind the other threads' work on the stream
+            host_ms_around_kernel_sum=float(wall.sum()) - dev["kernel"],
+            kernel_share_of_fragments=dev["kernel"] / 1e3 / by_stage["fragments"],
+        )
+    rag = RagDB(os.path.join(container, "rag_ws.db"), mode="r")
+    out["rag_nodes"], out["rag_edges"] = rag.counts()
+    out["voi"] = {}
+    t0 = time.perf_counter()
+    for t, path in segs.items():
+        seg = open_ds(path).to_ndarray()
+        scores = rand_voi(labels, seg)
+        out["voi"][t] = {
+            "voi_split": scores["voi_split"], "voi_merge": scores["voi_merge"],
+            "voi_sum": scores["voi_split"] + scores["voi_merge"], "segments": int(len(np.unique(seg)) - 1),
+        }
+        del seg
+    out["voi_seconds"] = time.perf_counter() - t0
+    if len(calls) != out["blocks"] or (device == "cuda" and out["seed_launches"] != out["blocks"]):
+        raise AssertionError(
+            f"blockwise ws: {out['blocks']} blocks, {len(calls)} seed calls, {out['seed_launches']} K2 launches"
+        )
+    if any(v["segments"] < 1 for v in out["voi"].values()):
+        raise AssertionError(f"blockwise ws segmented nothing: {out['voi']}")
+    return out
+
+
+def same_partition(a: np.ndarray, b: np.ndarray) -> dict:
+    """Whether ``a`` and ``b`` hold the same background and the same
+    partition of the rest: a one-to-one map between their ids."""
+    background = int(((a == 0) != (b == 0)).sum())
+    ids_a, dense_a = np.unique(a, return_inverse=True)
+    ids_b, dense_b = np.unique(b, return_inverse=True)
+    pairs = len(np.unique(dense_a.astype(np.int64) * len(ids_b) + dense_b))
+    return {
+        "equal": background == 0 and pairs == len(ids_a) == len(ids_b),
+        "background_differs": background, "ids": [len(ids_a), len(ids_b)], "pairs": pairs,
+    }
+
+
+def blockwise_against_in_memory(work: str, affs_path: str, labels_path: str, in_memory_voi: dict, device) -> dict:
+    """(2) The blockwise pipelines on the ``synth`` phase's 9-channel
+    affinities (its (64,512,512) volume, 8 blocks of BLOCKWISE_BLOCK): mws
+    with the defaults and ``global_bias_sweep = SYNTH_BIAS_SWEEP`` (one RAG
+    for both points), its VOI beside the in-memory mws's; cc at 0.5, whose
+    partition and background must equal in-memory ``cc_segmentation``'s;
+    ws sharded over 2 worker processes with a ledger, whose fragments and
+    partitions must equal one process's."""
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.eval.metrics import compute_metrics
+    from bootstrapper_torch.post import blockwise_seg
+    from bootstrapper_torch.post.segment import METHOD_DEFAULTS, cc_segmentation
+    from bootstrapper_torch.workflows import run_segmentation
+
+    stages: dict = {}
+    out: dict = {}
+    labels = open_ds(labels_path)
+    kw = dict(blockwise=True, block_shape=BLOCKWISE_BLOCK, num_workers=BLOCKWISE_NUM_WORKERS, device=device)
+
+    def run(name, mode, overrides=(), **cfg):
+        container = os.path.join(work, f"{name}.zarr")
+        toml = segment_toml(os.path.join(work, f"{name}_segment.toml"), affs_path, container, mode, **cfg)
+        return stage(stages, name, lambda: run_segmentation(toml, mode=mode, param_overrides=overrides, **kw))["vol"]
+
+    mws_stages: dict = {}
+    with timed_stages(blockwise_seg, MWS_STAGES, mws_stages):
+        mws = run("mws", "mws", (f"global_bias_sweep={SYNTH_BIAS_SWEEP}",))
+    out["mws"] = {
+        "seconds": stages["mws"]["seconds"], "stage_seconds": mws_stages,
+        "voi": {k: compute_metrics(open_ds(p), gt_labels=labels)["voi"] for k, p in mws.items()},
+        "in_memory_voi": {k: in_memory_voi.get(k) for k in mws},
+        "segments": {k: int(len(np.unique(open_ds(p).to_ndarray())) - 1) for k, p in mws.items()},
+    }
+    cc = run("cc", "cc")
+    threshold, debris = METHOD_DEFAULTS["cc"]["threshold"], METHOD_DEFAULTS["cc"]["remove_debris"]
+    t0 = time.perf_counter()
+    ref = cc_segmentation(open_ds(affs_path).to_ndarray(), threshold=threshold, remove_debris=debris)
+    out["cc"] = {
+        "seconds": stages["cc"]["seconds"], "in_memory_seconds": time.perf_counter() - t0,
+        "threshold": threshold, "remove_debris": debris,
+        **same_partition(open_ds(cc["cc"]).to_ndarray(), ref),
+    }
+    one = run("ws_one", "ws")
+    two = run("ws_two", "ws", workers=2, ledger=os.path.join(work, "ws_ledger.db"))
+    frags = [open_ds(os.path.join(work, f"{n}.zarr", "fragments_ws")).to_ndarray() for n in ("ws_one", "ws_two")]
+    out["ws_sharded"] = {
+        "seconds": stages["ws_two"]["seconds"], "one_process_seconds": stages["ws_one"]["seconds"],
+        "fragments_equal": bool(np.array_equal(*frags)),
+        "partitions": {t: same_partition(open_ds(two[t]).to_ndarray(), open_ds(p).to_ndarray()) for t, p in one.items()},
+    }
+    # K2 in the parent's ws only: the workers' launches are their own
+    out["seed_launches"] = stages["ws_one"]["launches"]["seed_maxima.kernel"]
+    out["launches"] = {k: v["launches"] for k, v in stages.items()}
+    bad = [
+        name for name, ok in [
+            ("cc", out["cc"]["equal"]), ("ws_sharded fragments", out["ws_sharded"]["fragments_equal"]),
+            *[(f"ws_sharded {t}", v["equal"]) for t, v in out["ws_sharded"]["partitions"].items()],
+        ] if not ok
+    ]
+    if bad or (device == "cuda" and out["seed_launches"] != 8):
+        raise AssertionError(f"blockwise against in-memory / one process: {bad}: {out}")
+    return out
+
+
+def blockwise_phase(work: str, volumes: dict, synth: dict, seed: int, device="cuda",
+                    shape=BLOCKWISE_VOLUME) -> dict:
+    """Blockwise segmentation: (1) ``blockwise_full_scale`` at ``shape``
+    (its files deleted after), (2) ``blockwise_against_in_memory`` on the
+    ``synth`` phase's affinities and its in-memory mws VOI."""
+    import shutil
+
+    full_dir = os.path.join(work, "blockwise_full")
+    os.makedirs(full_dir, exist_ok=True)
+    try:
+        full = blockwise_full_scale(full_dir, shape, seed, device)
+    finally:
+        shutil.rmtree(full_dir, ignore_errors=True)
+    os.makedirs(os.path.join(work, "blockwise"), exist_ok=True)
+    vs = blockwise_against_in_memory(
+        os.path.join(work, "blockwise"), synth["affs_dataset"], volumes["vol"]["labels_dataset"],
+        synth["segment"]["mws"]["voi"], device,
+    )
+    return {"full_scale": full, "synth_volume": vs, "seed_launches": full["seed_launches"] + vs["seed_launches"]}
 
 def merge_launches(rows: list, groups, seed: int) -> int:
     """Adds each group's K1 launches to the row of its conv; a conv no row
@@ -3102,6 +3462,10 @@ def main(argv=None) -> int:
             SYNTH_ITERATIONS, TIMED_STEPS,
         )
         emit({"phase": "synth", "nvidia_smi": smi, **synth})
+        # blockwise segmentation: ws at the CREMI sample size, K2 once per
+        # block; mws, cc and sharded ws on the synth phase's affinities
+        blockwise = blockwise_phase(work, volumes, synth, args.seed)
+        emit({"phase": "blockwise", "nvidia_smi": smi, **blockwise})
     # the stream against the tiled path at its own xy tile, and the share of
     # voxels that differ from the zoo-tiled path, seams included
     vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
@@ -3128,7 +3492,11 @@ def main(argv=None) -> int:
         mtlsd["seed_launches"] + chain["seed_launches"] + chain2d["seed_launches"] + synth["seed_launches"]
     )
     round_seed_rows[0]["launches"] += lsd_seed_launches
-    seed_launches += stream_seed + sum(round_line["seed_launches"].values()) + lsd_seed_launches
+    # the blockwise phase's, on the row of its block shape
+    next(r for r in seed_rows if r["shape"] == "block_36x320x320_size10")["launches"] = blockwise["seed_launches"]
+    seed_launches += (
+        stream_seed + sum(round_line["seed_launches"].values()) + lsd_seed_launches + blockwise["seed_launches"]
+    )
     seed_rows += round_seed_rows
     top_conv = max(conv_rows, key=lambda r: r["ms"] * r["launches"])
     top_seed = seed_rows[0]

@@ -190,6 +190,8 @@ def test_conv3d_kernel_chains_on_16_byte_voxels(cuda, dtype):
         # enough warps for row blocks of 128, 64 and 32 rows, with 8-byte
         # and 16-byte rows; the general body on a stack of many row blocks
         pytest.param((40, 700, 1250), 10, "normal", id="40x700x1250-s10-normal"),
+        # a blockwise ws block with its context at the pipeline's defaults
+        pytest.param((36, 320, 320), 10, "normal", id="36x320x320-s10-normal"),
         pytest.param((12, 700, 1250), 16, "normal", id="12x700x1250-s16-normal"),
         pytest.param((16, 500, 640), 9, "negative", id="16x500x640-s9-negative"),
         pytest.param((8, 640, 640), 17, "neginf", id="8x640x640-s17-neginf"),
