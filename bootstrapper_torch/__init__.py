@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+__version__ = "0.3.0"  # the distribution's, as in pyproject.toml
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda``; a CUDA device without a GPU raises."""

@@ -1,13 +1,16 @@
-"""World-unit arrays backed by numpy: in memory, or uncompressed Zarr v2.
+"""World-unit arrays backed by numpy: in memory, or Zarr v2 on disk.
 
 The same interface as the JAX package's ``core/arrays.py`` (``roi``,
 ``offset``, ``voxel_size``, ROI indexing, ``to_ndarray``, ``open_ds`` /
 ``prepare_ds``) with the same on-disk format: a Zarr v2 directory holding
-``.zarray`` metadata, one raw C-order file per chunk named ``i.j.k``,
-and world metadata (``offset``, ``voxel_size``, ``axis_names``,
-``units``) in ``.zattrs``.  Chunks are read and written with plain numpy
-and JSON, so only ``compressor: null`` arrays are supported; opening a
-compressed array raises.
+``.zarray`` metadata, one C-order file per chunk named ``i.j.k``, and
+world metadata (``offset``, ``voxel_size``, ``axis_names``, ``units``) in
+``.zattrs``.  Chunks are read and written with plain numpy and JSON, raw
+or through one of three codecs: ``zstd`` (the JAX package's default
+compressor; ``zstandard`` is imported where a zstd chunk is first read or
+written), ``zlib`` and ``gzip`` (the standard library).  Any other codec,
+and any filter, raises when the array is opened.  The port writes
+uncompressed unless ``prepare_ds`` is given a ``compressor``.
 
 Arrays may have non-spatial leading dimensions (e.g. affinity channels);
 only the trailing ``len(voxel_size)`` dimensions are spatial and addressed
@@ -16,10 +19,12 @@ by ROIs.
 
 from __future__ import annotations
 
+import gzip
 import itertools
 import json
 import os
 import threading
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -27,8 +32,51 @@ import numpy as np
 from .geometry import Coordinate, Roi
 
 
+CODECS = ("zstd", "zlib", "gzip")
+
+
+def _zstandard():
+    try:
+        import zstandard
+    except ImportError as e:
+        raise ImportError(
+            "the Python package 'zstandard' is needed to read or write "
+            "zstd-compressed Zarr chunks (the JAX package's default compressor)"
+        ) from e
+    return zstandard
+
+
+def encode_chunk(raw: bytes, compressor: Optional[dict]) -> bytes:
+    """One chunk's bytes as ``compressor`` (a Zarr v2 codec dict) stores them."""
+    if compressor is None:
+        return raw
+    cid, level = compressor["id"], compressor.get("level")
+    if cid == "zstd":
+        return _zstandard().ZstdCompressor(level=3 if level is None else level).compress(raw)
+    if cid == "zlib":
+        return zlib.compress(raw, 6 if level is None else level)
+    if cid == "gzip":
+        return gzip.compress(raw, compresslevel=6 if level is None else level, mtime=0)
+    raise ValueError(f"cannot write Zarr codec {cid!r}; bootstrapper_torch writes {CODECS}")
+
+
+def decode_chunk(data: bytes, compressor: Optional[dict], nbytes: int) -> bytes:
+    """The raw bytes of one stored chunk of ``nbytes`` bytes."""
+    if compressor is None:
+        return data
+    cid = compressor["id"]
+    if cid == "zstd":
+        return _zstandard().ZstdDecompressor().decompress(data, max_output_size=nbytes)
+    if cid == "zlib":
+        return zlib.decompress(data)
+    if cid == "gzip":
+        return gzip.decompress(data)
+    raise ValueError(f"cannot decode Zarr codec {cid!r}")
+
+
 class ZarrStore:
-    """An uncompressed Zarr v2 array on disk, read and written by slices."""
+    """A Zarr v2 array on disk (raw or ``CODECS``-compressed chunks), read
+    and written by slices."""
 
     def __init__(self, path: str):
         self.path = path
@@ -36,12 +84,17 @@ class ZarrStore:
             meta = json.load(f)
         if meta.get("zarr_format", 2) != 2:
             raise ValueError(f"{path}: only Zarr v2 is supported")
-        if meta.get("compressor") is not None or meta.get("filters"):
+        self.compressor = meta.get("compressor")
+        if self.compressor is not None and self.compressor.get("id") not in CODECS:
             raise ValueError(
-                f"{path} is stored with compressor {meta.get('compressor')} "
-                f"and filters {meta.get('filters')}; bootstrapper_torch reads "
-                "only uncompressed Zarr v2 (compressor: null); rewrite it "
-                "uncompressed with a Zarr library that decodes it."
+                f"{path} is stored with codec {self.compressor.get('id')!r} "
+                f"({self.compressor}); bootstrapper_torch decodes {CODECS} "
+                "and uncompressed chunks"
+            )
+        if meta.get("filters"):
+            raise ValueError(
+                f"{path} is stored with filters {meta['filters']}; "
+                "bootstrapper_torch reads Zarr arrays without filters"
             )
         if meta.get("order", "C") != "C":
             raise ValueError(f"{path}: only C-order chunks are supported")
@@ -52,7 +105,9 @@ class ZarrStore:
         self.sep = meta.get("dimension_separator", ".")
 
     @classmethod
-    def create(cls, path, shape, chunks, dtype) -> "ZarrStore":
+    def create(cls, path, shape, chunks, dtype, compressor: Optional[dict] = None) -> "ZarrStore":
+        if compressor is not None and compressor.get("id") not in CODECS:
+            raise ValueError(f"cannot write Zarr codec {compressor.get('id')!r}; bootstrapper_torch writes {CODECS}")
         os.makedirs(path, exist_ok=True)
         for name in os.listdir(path):  # mode "w": drop the old chunks
             p = os.path.join(path, name)
@@ -63,7 +118,7 @@ class ZarrStore:
             "shape": [int(s) for s in shape],
             "chunks": [int(c) for c in chunks],
             "dtype": np.dtype(dtype).str,
-            "compressor": None,
+            "compressor": compressor,
             "fill_value": 0,
             "order": "C",
             "filters": None,
@@ -79,7 +134,14 @@ class ZarrStore:
         p = self._chunk_file(idx)
         if not os.path.exists(p):
             return np.full(self.chunks, self.fill_value, self.dtype)
-        return np.fromfile(p, self.dtype).reshape(self.chunks)
+        if self.compressor is None:
+            return np.fromfile(p, self.dtype).reshape(self.chunks)
+        nbytes = int(np.prod(self.chunks)) * self.dtype.itemsize
+        with open(p, "rb") as f:
+            raw = decode_chunk(f.read(), self.compressor, nbytes)
+        if len(raw) != nbytes:
+            raise ValueError(f"{p}: decoded {len(raw)} bytes, a chunk holds {nbytes}")
+        return np.frombuffer(raw, self.dtype).reshape(self.chunks).copy()
 
     def _chunk_ranges(self, sl):
         """Per chunk overlapping ``sl``: (chunk index, slices into the
@@ -135,7 +197,11 @@ class ZarrStore:
             chunk[src] = value[dst]
             # one name per writer: threads of one process write too
             tmp = f"{self._chunk_file(idx)}.{os.getpid()}.{threading.get_ident()}.tmp"
-            chunk.tofile(tmp)
+            if self.compressor is None:
+                chunk.tofile(tmp)
+            else:
+                with open(tmp, "wb") as f:
+                    f.write(encode_chunk(chunk.tobytes(), self.compressor))
             os.replace(tmp, self._chunk_file(idx))
 
 
@@ -163,6 +229,7 @@ class Array:
         self.voxel_size = Coordinate(voxel_size)
         self.offset = Coordinate(offset)
         sdims = self.voxel_size.dims
+        self.spatial_dims = sdims
         shape = tuple(store.shape)
         self.channel_shape = shape[: len(shape) - sdims]
         self.spatial_shape = shape[len(shape) - sdims :]
@@ -268,9 +335,9 @@ def _normalize_attrs(attrs: dict, ndim: int) -> dict:
 
 
 def open_ds(path: str, mode: str = "r") -> Array:
-    """Open an existing uncompressed Zarr v2 array with world metadata.
-    ``mode`` is the JAX package's (``"r"`` or ``"r+"``); the port's arrays
-    are written through the same store either way."""
+    """Open an existing Zarr v2 array with world metadata.  ``mode`` is
+    the JAX package's (``"r"`` or ``"r+"``); the port's arrays are written
+    through the same store either way."""
     if mode not in ("r", "r+"):
         raise ValueError(f"open_ds mode must be 'r' or 'r+', got {mode!r}")
     path = os.path.abspath(path).rstrip("/")
@@ -286,34 +353,60 @@ def prepare_ds(
     voxel_size: Sequence[int],
     dtype,
     chunk_shape: Optional[Sequence[int]] = None,
+    axis_names: Optional[Sequence[str]] = None,
+    units: Optional[Sequence[str]] = None,
+    mode: str = "w",
+    compressor: Optional[dict] = None,
 ) -> Array:
-    """Create (or overwrite) an uncompressed Zarr v2 array with world
-    metadata.
+    """Create a Zarr v2 array with world metadata (``mode="w"``: drop any
+    array there), or, with ``mode="a"`` or ``"r+"``, open the array
+    already there with its ``.zattrs``, which must have the asked offset
+    and voxel size (and then also its shape and dtype); another mode only
+    opens an existing array.
 
     ``shape`` is the full voxel shape including channel dims; ``offset`` and
-    ``voxel_size`` cover only the trailing spatial dims.
+    ``voxel_size`` cover only the trailing spatial dims.  ``compressor`` is
+    a Zarr v2 codec dict of ``CODECS`` (e.g. ``{"id": "zstd", "level": 3}``,
+    the JAX package's default); the port's default, None, writes raw chunks.
     """
     path = os.path.abspath(path).rstrip("/")
     voxel_size = Coordinate(voxel_size)
     offset = Coordinate(offset)
     shape = tuple(int(s) for s in shape)
     sdims = voxel_size.dims
+    if mode != "w" and (mode not in ("a", "r+") or os.path.exists(os.path.join(path, ".zarray"))):
+        # an existing array keeps its metadata: the asked frame must match
+        store = ZarrStore(path)
+        attrs = _normalize_attrs(_read_attrs(path), len(store.shape))
+        have_off, have_vs = Coordinate(attrs["offset"]), Coordinate(attrs["voxel_size"])
+        if have_off != offset or have_vs != voxel_size:
+            raise ValueError(
+                f"{path} already exists with offset {tuple(have_off)} / "
+                f"voxel_size {tuple(have_vs)}; requested "
+                f"{tuple(offset)} / {tuple(voxel_size)} (mode={mode!r} "
+                "keeps existing metadata — use mode='w' to recreate)"
+            )
+        if store.shape != shape or store.dtype != np.dtype(dtype):
+            raise ValueError(
+                f"{path} already exists with shape {store.shape} and dtype {store.dtype}; "
+                f"requested {shape} / {np.dtype(dtype)} (mode={mode!r})"
+            )
+        return Array(store, have_off, have_vs, path=path)
     if chunk_shape is None:
         chunk_shape = shape[: len(shape) - sdims] + tuple(
             min(s, 256 if i >= len(shape) - 2 else 64)
             for i, s in enumerate(shape[len(shape) - sdims :], len(shape) - sdims)
         )
-    store = ZarrStore.create(path, shape, chunk_shape, dtype)
-    axis_names = [f"c{i}^" for i in range(len(shape) - sdims)] + [
-        "zyx"[3 - sdims + i] for i in range(sdims)
-    ]
+    store = ZarrStore.create(path, shape, chunk_shape, dtype, compressor)
+    if axis_names is None:
+        axis_names = [f"c{i}^" for i in range(len(shape) - sdims)] + ["zyx"[3 - sdims + i] for i in range(sdims)]
     _write_attrs(
         path,
         {
             "offset": list(offset),
             "voxel_size": list(voxel_size),
-            "axis_names": axis_names,
-            "units": ["nm"] * sdims,
+            "axis_names": list(axis_names),
+            "units": list(units) if units is not None else ["nm"] * sdims,
         },
     )
     return Array(store, offset, voxel_size, path=path)

@@ -12,9 +12,10 @@ package's ``predict/scan.py``).
 - The next tile's host read and the previous tile's download and write
   overlap the device's compute (``_pipeline.run_pipelined``).
 
-The tile is the net config's ``input_shape + shape_increase``: the JAX
-package's ``auto_shape_increase`` encodes a TPU v5e memory model and is
-not ported.  A 2D setup's tile is ``adj_slices`` sections in and one out,
+The tile is the net config's ``input_shape + shape_increase``, or, with
+``auto_shape_increase`` (``bs predict --auto-tile``), the JAX package's
+growth rule under a budget of input voxels that this card's memory sets
+(``default_tile_budget``).  A 2D setup's tile is ``adj_slices`` sections in and one out,
 ``(adj, H, W) -> (1, H', W')``, and its tiles run ``batch_tiles`` at a
 time (32 by default, as in the JAX package; 3D setups 1): a short last
 batch is padded with its last tile, whose extra outputs are discarded.
@@ -35,6 +36,78 @@ from ..core.geometry import Coordinate, Roi
 from ..models.model import Model, head_dims
 from ..models.unet import compute_output_shape
 from ._pipeline import DeviceIO, TileWriter, make_tile_reader, run_pipelined
+
+
+#: device memory a tiled bf16 forward of the full-width 3d_affs net takes
+#: per input voxel, rounded up from the most that ``chip_smoke.py``'s ``cli``
+#: phase read (``torch.cuda.max_memory_allocated`` over the forward, less the
+#: weights and input; it grows with the tile: 233 at (32,412,412), 380 at
+#: (92,604,604), 432 at (152,908,908)) on an H100 80GB HBM3 (700.00 W limit)
+TILE_BYTES_PER_INPUT_VOXEL = 450
+#: share of the card's memory one tile's forward may plan for; the rest holds
+#: the weights, the pipeline's buffers and the allocator's slack
+TILE_MEMORY_SHARE = 0.6
+#: budgets made for a device that reports no memory size (the CPU) assume
+#: one H100's
+DEFAULT_DEVICE_BYTES = 80 * 10**9
+
+
+def device_memory_bytes(device=None) -> Optional[int]:
+    """Total memory of a CUDA device; None for any other device."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
+def default_tile_budget(device=None) -> int:
+    """Input voxels one tiled forward may take on ``device``."""
+    mem = device_memory_bytes(device) or DEFAULT_DEVICE_BYTES
+    return int(TILE_MEMORY_SHARE * mem / TILE_BYTES_PER_INPUT_VOXEL)
+
+
+def auto_shape_increase(
+    net_config: dict,
+    volume_vox_shape,
+    max_input_voxels: Optional[int] = None,
+    device=None,
+) -> list:
+    """A ``shape_increase`` for the largest tile, as the JAX package's
+    ``auto_shape_increase`` picks it: valid convs make outputs independent
+    of the tile, so a larger tile pays the fixed context fewer times.  Grow
+    z first (the z context dominates) up to 124 output slices, then y and x
+    together in steps of the pooling product, staying inside the volume and
+    ``max_input_voxels`` (default: ``device``'s ``default_tile_budget``).
+    A 2D setup keeps its config's ``shape_increase``."""
+    base_in = list(net_config["input_shape"])
+    base_out = list(net_config["output_shape"])
+    dims = len(base_in)
+    if dims != 3:
+        return list(net_config.get("shape_increase", [0] * dims))
+    if max_input_voxels is None:
+        max_input_voxels = default_tile_budget(device)
+    vol = list(volume_vox_shape)[-3:]
+    step = [1, 1, 1]
+    for f in net_config["downsample_factors"]:
+        step = [a * b for a, b in zip(step, f)]
+
+    def fits(inc):
+        out = [o + s for o, s in zip(base_out, inc)]
+        inp = [i + s for i, s in zip(base_in, inc)]
+        return all(o <= v for o, v in zip(out, vol)) and int(np.prod(inp)) <= max_input_voxels
+
+    inc = [0, 0, 0]
+    while True:  # z: any step is conv-valid when z is not pooled
+        cand = [inc[0] + max(step[0], 4), inc[1], inc[2]]
+        if base_out[0] + cand[0] > 124 or not fits(cand):
+            break
+        inc = cand
+    while True:
+        cand = [inc[0], inc[1] + step[1], inc[2] + step[2]]
+        if not fits(cand):
+            break
+        inc = cand
+    return inc
 
 
 def shrink_shape_increase(model: Model, volume_vox_shape, inc=None) -> list:

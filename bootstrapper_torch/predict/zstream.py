@@ -36,7 +36,7 @@ from ..models.model import Model
 from ..models.unet import compute_output_shape
 from ..models.zstream import stream_eligible
 from ._pipeline import DeviceIO, TileWriter, read_inputs, run_pipelined
-from .scan import tile_rois
+from .scan import DEFAULT_DEVICE_BYTES, device_memory_bytes, tile_rois
 
 #: device memory a steady step takes per effective input voxel
 #: ``(s + 8) * xy_in**2`` (bf16, full-width 3d_affs), rounded up from the
@@ -45,22 +45,11 @@ STEADY_BYTES_PER_EFF_VOXEL = 650
 #: share of the card's memory the steady step may plan for; the rest holds
 #: the weights, the stream state and the allocator's slack
 STREAM_MEMORY_SHARE = 0.6
-#: plans made for a device that reports no memory size (the CPU) assume
-#: one H100's
-DEFAULT_DEVICE_BYTES = 80 * 10**9
-
-
-def _device_memory_bytes(device=None) -> Optional[int]:
-    """Total memory of a CUDA device; None for any other device."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
-        return None
-    return torch.cuda.get_device_properties(dev).total_memory
 
 
 def default_budget(device=None) -> int:
     """Effective input voxels a steady step may take on ``device``."""
-    mem = _device_memory_bytes(device) or DEFAULT_DEVICE_BYTES
+    mem = device_memory_bytes(device) or DEFAULT_DEVICE_BYTES
     return int(STREAM_MEMORY_SHARE * mem / STEADY_BYTES_PER_EFF_VOXEL)
 
 

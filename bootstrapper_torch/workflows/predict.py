@@ -9,6 +9,12 @@ then refiners, each reading the previous link's outputs (matched to its
 declared inputs by name), which stay in [0, 1] where raw is scaled to
 [-1, 1].
 
+``auto_tile`` grows the tile as the JAX package's ``--auto-tile`` does
+(``predict/scan.py:auto_shape_increase``), before the tile is fitted to the
+volume and before streaming is considered, so that a tile covering the
+volume's depth is tiled, not streamed.  ``BS_INT8=1``, which switches the
+JAX package's convs to int8, raises here: int8 inference is not ported.
+
 As in the JAX package, a volume deeper than one tiled z pass is streamed
 in z (``predict/zstream.py``) when the net is 3D and never pools z; other
 volumes, and every 2D link, are tiled (``predict/scan.py``), a 2D link's
@@ -30,7 +36,12 @@ from ..core.geometry import Roi
 from ..models.model import Model
 from ..models.weights import latest_checkpoint, load_checkpoint, load_params
 from ..models.zstream import stream_eligible
-from ..predict.scan import Predictor, prepare_prediction_outputs, shrink_shape_increase
+from ..predict.scan import (
+    Predictor,
+    auto_shape_increase,
+    prepare_prediction_outputs,
+    shrink_shape_increase,
+)
 from ..predict.zstream import ZStreamPredictor, plan_stream
 from ..utils import tomlio
 
@@ -151,6 +162,7 @@ def run_prediction(
     device=None,
     compute_dtype=torch.bfloat16,
     batch_tiles: Optional[int] = None,
+    auto_tile: bool = False,
 ) -> dict:
     """Run the prediction chain of every volume of the config; returns
     per-link stats (tiles, seconds, output voxels/s; a stream adds its
@@ -159,7 +171,13 @@ def run_prediction(
     ``input_datasets`` from disk (re-running one setup of a chain).
     ``batch_tiles`` sets the tiled predictor's batch (default 32 tiles
     for a 2D setup, 1 for a 3D one) and, as in the JAX package, tiles
-    every link instead of streaming it."""
+    every link instead of streaming it.  ``auto_tile`` picks each 3D
+    link's tile by ``auto_shape_increase`` under ``device``'s budget."""
+    if os.environ.get("BS_INT8", "0") == "1":
+        raise ValueError(
+            "BS_INT8=1 asks for int8 inference, which bootstrapper_torch has not "
+            "ported yet (ROADMAP Queue A4); unset it to predict in bf16"
+        )
     cfg = tomlio.load(config_file)
     cfg = cfg.get("predict", cfg)
     results = {}
@@ -202,7 +220,11 @@ def run_prediction(
                 in_roi = in_roi.intersect(a.roi)
             out_roi = in_roi if roi is None else roi
             out_vox = tuple(s // v for s, v in zip(out_roi.shape, raw.voxel_size))
-            fitted = shrink_shape_increase(model, out_vox)
+            shape_increase = None
+            if auto_tile:
+                shape_increase = auto_shape_increase(model.net_config, raw.spatial_shape, device=device)
+                logger.info("auto tile: shape_increase=%s", shape_increase)
+            fitted = shrink_shape_increase(model, out_vox, shape_increase)
             predictor = None
             if batch_tiles is None:
                 predictor = _maybe_zstream(

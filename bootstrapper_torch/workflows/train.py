@@ -19,9 +19,9 @@ where a config asks for them: TPU folding (``fold_xy = true``) and the
 device ``mesh``.  The JAX package's fold probe, which turns
 folding on for a batch of 8 or more where a TPU compile of it passes, is
 TPU machinery: here a config without ``fold_xy`` trains unfolded at any
-batch, with no probe.  Its ``BS_INT8`` guard has nothing to guard here:
-the port has no int8 path, so training runs in ``compute_dtype`` either
-way.
+batch, with no probe.  ``BS_INT8=1`` is ignored here with a warning, as
+the JAX package ignores it in training (int8 is inference-only there, and
+the port's prediction refuses it until it is ported).
 """
 
 from __future__ import annotations
@@ -103,6 +103,8 @@ def run_training(config_file: str, device=None, compute_dtype=torch.bfloat16, **
     ``"cpu"`` is asked for); returns ``{"iterations", "rss_limit_hit",
     "final_loss", "checkpoint"}``."""
     dev = resolve_device(device)
+    if os.environ.get("BS_INT8") == "1":
+        logger.warning("BS_INT8=1 ignored during training (inference-only)")
     cfg = setup_train(config_file, **overrides)
     setup_dir = cfg["setup_dir"]
     setup_name = os.path.basename(os.path.normpath(setup_dir))

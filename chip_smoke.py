@@ -143,6 +143,23 @@ Phases, each printing one JSON line:
     ledger (must equal one process's fragments and partitions).  K2 is
     held bit-exact at the block shape in (b), and the phase's launches
     are counted on that row of the ``kernels`` line.
+(k) the command line (``cli``), after ``blockwise``, on a fresh Voronoi
+    sample of TRAIN_VOLUME at full 3d_affs width: ``python -m
+    bootstrapper_torch prepare round`` in a subprocess (its five stage
+    TOMLs must equal ``configs.make_round_configs``'s), then ``run <round
+    dir>`` in this process through the command line's ``main`` (train
+    CLI_ITERATIONS, predict streamed, segment ws, evaluate by VOI,
+    filter; seconds by stage, launch counts zeroed before and read
+    after: K1 once per iteration at each training conv and on every
+    stream step, K2 in segment); ``run_prediction`` again on the same
+    config and checkpoint (bit-equal affinities); ``predict --auto-tile``
+    (one tile for the volume, within +-1 of the stream further than
+    SEAM_BAND voxels from either's xy tile edges; its eleven K1 shapes
+    held against the plain version and counted into the ``kernels``
+    line); and the peak memory of a tile forward per input voxel at the
+    zoo's tile, CLI_SWEEP_INCREASES', the auto tile's and the largest the
+    budget admits, which must stay under ``predict/scan.py``'s
+    TILE_BYTES_PER_INPUT_VOXEL.
 
 Then the card's name and power limit as nvidia-smi reports them, the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -288,6 +305,10 @@ ZSTREAM_MAX_SHARE = 1e-2
 SEAM_BAND = 8
 # the tiled predictor's input tile: the zoo's input shape + shape_increase
 TILED_INPUT = (32, 412, 412)
+# the command line's round: iterations, and the shape increases (beside
+# the zoo's and the auto tile's) of the tile memory sweep
+CLI_ITERATIONS = 20
+CLI_SWEEP_INCREASES = [[28, 312, 312]]
 
 
 def emit(obj) -> None:
@@ -3254,6 +3275,282 @@ def blockwise_phase(work: str, volumes: dict, synth: dict, seed: int, device="cu
     )
     return {"full_scale": full, "synth_volume": vs, "seed_launches": full["seed_launches"] + vs["seed_launches"]}
 
+# -- (c') the command line -------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_workflows(log: dict):
+    """The workflow entry points the command line calls, wrapped so that
+    each call's seconds, result and launch counts (by route and K1's by
+    conv, read as differences around the call) land in ``log[stage]``."""
+    from bootstrapper_torch.ops import conv3d_kernel_launches, launch_counts
+    from bootstrapper_torch.workflows import evaluate, filter, predict, segment, train
+
+    def diff(after: dict, before: dict) -> dict:
+        return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+    wrapped = [
+        (train, "run_training", "train"), (predict, "run_prediction", "predict"),
+        (segment, "run_segmentation", "segment"), (evaluate, "run_evaluation", "evaluate"),
+        (filter, "run_filter", "filter"),
+    ]
+    originals = [getattr(mod, fn) for mod, fn, _ in wrapped]
+    for (mod, fn, name), orig in zip(wrapped, originals):
+        def timed(*args, _orig=orig, _name=name, **kw):
+            counts, convs, t0 = launch_counts(), conv3d_kernel_launches(), time.perf_counter()
+            result = _orig(*args, **kw)
+            log[_name] = {
+                "seconds": time.perf_counter() - t0, "result": result,
+                "launches": diff(launch_counts(), counts), "conv_launches": diff(conv3d_kernel_launches(), convs),
+            }
+            return result
+
+        setattr(mod, fn, timed)
+    try:
+        yield log
+    finally:
+        for (mod, fn, _), orig in zip(wrapped, originals):
+            setattr(mod, fn, orig)
+
+
+def xy_edges(size: int, tile: int) -> list:
+    """Where the tiles of ``tile`` voxels that cover ``size`` begin and end
+    (edge tiles shifted inward, as ``predict.scan.tile_rois`` places them)."""
+    starts = list(range(0, size - tile + 1, tile)) or [0]
+    if starts[-1] + tile < size:
+        starts.append(size - tile)
+    return sorted({e for s in starts for e in (s, s + tile)})
+
+
+def away_from_edges(shape, tiles, band: int) -> np.ndarray:
+    """(Y, X) mask of the voxels further than ``band`` from every xy tile
+    edge of each output xy tile size in ``tiles``."""
+    keep = [np.ones(n, bool) for n in shape]
+    for tile in tiles:
+        for axis, n in enumerate(shape):
+            for e in xy_edges(n, tile):
+                keep[axis][max(0, e - band - 1) : e + band] = False
+    return keep[0][:, None] & keep[1][None, :]
+
+
+def tile_memory_sweep(model, tiles, seed: int) -> list:
+    """Peak device memory of one bf16 tile forward through ``Predictor`` at
+    each ``(shape_increase, input tile)`` of ``tiles``, beyond what the
+    weights and the input hold, per input voxel, and the forward's time
+    between CUDA events and its output Mvox/s."""
+    import torch
+
+    from bootstrapper_torch.predict.scan import Predictor
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for inc, tile in tiles:
+        pred = Predictor(model, (40, 4, 4), shape_increase=inc, device="cuda")
+        x = torch.randint(0, 256, (1, *tile, 1), generator=gen, device="cuda", dtype=torch.uint8)
+        pred.forward(x)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = pred.forward(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        ms = cuda_time_ms(lambda: pred.forward(x), iters=3, queued=True)
+        voxels = int(np.prod(tile))
+        rows.append({
+            "input_tile": list(tile), "output_tile": list(pred.output_tile), "input_voxels": voxels,
+            "peak_gb": peak / 1e9, "held_gb": held / 1e9,
+            "bytes_per_input_voxel": (peak - held) / voxels, "ms": ms,
+            "output_mvox_per_s_device": int(np.prod(pred.output_tile)) / ms / 1e3,
+        })
+        del x, pred
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cli_phase(work: str, seed: int, net_config: dict, shape, iterations: int, device="cuda") -> tuple:
+    """The command line, as a user drives a round with it, on a fresh
+    Voronoi sample of ``shape``: ``python -m bootstrapper_torch prepare
+    round`` in a subprocess (its five stage TOMLs held to the ones
+    ``configs.make_round_configs`` writes with the same arguments), ``net_config``
+    written over the setup's, then ``run <round dir>`` in this process
+    through the command line's ``main`` (train ``iterations``, predict,
+    segment in ws, evaluate by VOI, filter), launch counts zeroed before it
+    and read after.  Then ``run_prediction`` once more on the same config
+    and checkpoint, whose affinities must equal ``run``'s bit for bit; then
+    ``predict --auto-tile``, within +-1 of the default tiling further than
+    SEAM_BAND voxels from either tiling's xy tile edges, K1 once at each of
+    its tile's convs per tile.  On the card, last, the memory sweep behind
+    ``predict/scan.py``'s tile budget.  Returns the phase's line and K1's
+    launch groups (``merge_launches``)."""
+    import torch
+
+    from bootstrapper_torch import configs
+    from bootstrapper_torch.cli.main import main as bs
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models import Model, load_checkpoint, load_params
+    from bootstrapper_torch.ops import conv3d_kernel_launches, launch_counts, reset_launch_counts
+    from bootstrapper_torch.predict import scan
+    from bootstrapper_torch.utils import tomlio
+    from bootstrapper_torch.workflows import run_prediction
+
+    out = {"volume": list(shape), "iterations": iterations}
+    t0 = time.perf_counter()
+    volumes = write_round_sample(work, shape, seed, device)
+    container, labels = volumes["vol"]["output_container"], volumes["vol"]["labels_dataset"]
+    volumes_toml = os.path.join(work, "volumes.toml")
+    tomlio.dump({"volumes": volumes}, volumes_toml)
+    out["sample_seconds"] = time.perf_counter() - t0
+
+    # prepare, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bootstrapper_torch", "--device", device, "prepare", "round", "-b", work,
+         "-v", volumes_toml, "-m", "3d_affs", "-r", "cli_round", "--max-iterations", str(iterations),
+         "--gt-labels", labels],
+        capture_output=True, text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    out["prepare_seconds"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"prepare round exited {proc.returncode}: {proc.stderr[-3000:]}")
+    round_dir = os.path.join(work, "cli_round")
+    ref_base = os.path.join(work, "ref")
+    ref = configs.make_round_configs(
+        os.path.join(ref_base, "cli_round"), volumes, ["3d_affs"], max_iterations=iterations, gt_labels=labels
+    )
+    stage_tomls = sorted(os.path.basename(p) for p in ref.values() if os.path.basename(p)[0].isdigit())
+    for name in stage_tomls:
+        got = json.dumps(tomlio.load(os.path.join(round_dir, name)))
+        want = json.dumps(tomlio.load(os.path.join(ref_base, "cli_round", name))).replace(ref_base, work)
+        if got != want:
+            raise AssertionError(f"prepare round wrote {name} unlike make_round_configs: {got} != {want}")
+    out["stage_tomls"] = stage_tomls
+    setup = os.path.join(round_dir, "setups", "3d_affs")
+    write_setup_config(setup, net_config)
+
+    # run the round in this process, through the command line's main
+    log: dict = {}
+    with timed_workflows(log), contextlib.redirect_stdout(sys.stderr):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = bs(["--device", device, "run", round_dir], standalone_mode=False)
+        out["run_seconds"] = time.perf_counter() - t0
+        run_launches, run_convs = launch_counts(), conv3d_kernel_launches()
+    if rc != 0 or sorted(log) != ["evaluate", "filter", "predict", "segment", "train"]:
+        raise AssertionError(f"run {round_dir}: exit {rc}, stages {sorted(log)}")
+    train, (pstats,) = log["train"]["result"], log["predict"]["result"].values()
+    if train["iterations"] != iterations or not train["checkpoint"].endswith(f"model_checkpoint_{iterations}"):
+        raise AssertionError(f"run's training: {train}")
+    predict_toml = os.path.join(round_dir, "02_predict.toml")
+    (link,) = tomlio.load(predict_toml)["predict"]["vol"]["chain"]
+    affs_path = os.path.join(container, link["output_prefix"], "3d_affs")
+    affs = open_ds(affs_path).to_ndarray()
+    with open(os.path.join(container, "eval", "vol_results.json")) as f:
+        voi = {os.path.basename(p): e["voi"] for p, e in json.load(f).items()}
+    filtered = log["filter"]["result"]["vol"]
+    pseudo = open_ds(filtered["labels"]).to_ndarray()
+    out.update({
+        "stage_seconds": {k: v["seconds"] for k, v in log.items()},
+        "launches": {k: v["launches"] for k, v in log.items()},
+        "run_launches": run_launches,
+        "checkpoint": os.path.basename(train["checkpoint"]), "final_loss": train["final_loss"],
+        "predict": {k: pstats[k] for k in pstats if k != "plan"},
+        "predict_mvox_per_s": pstats["voxels_per_sec"] / 1e6,
+        "voi": voi,
+        "pseudo_gt": {"dataset": filtered["labels"], "removed_ids": filtered["removed_ids"],
+                      "labelled_share": float((pseudo > 0).mean())},
+    })
+    del pseudo
+
+    # the command line adds nothing: the entry point on the same config
+    t0 = time.perf_counter()
+    run_prediction(predict_toml, device=device)
+    direct = open_ds(affs_path).to_ndarray()
+    out["direct_predict_seconds"] = time.perf_counter() - t0
+    if not np.array_equal(direct, affs):
+        raise AssertionError(f"run's affinities differ from run_prediction's at {int((direct != affs).sum())} voxels")
+    out["cli_equals_direct"] = True
+    del direct
+
+    # predict --auto-tile
+    nc = net_config
+    inc = scan.auto_shape_increase(nc, open_ds(volumes["vol"]["raw_dataset"]).spatial_shape, device=device)
+    auto_log: dict = {}
+    with timed_workflows(auto_log), contextlib.redirect_stdout(sys.stderr):
+        reset_launch_counts()
+        rc = bs(["--device", device, "predict", predict_toml, "--auto-tile"], standalone_mode=False)
+        auto_convs = conv3d_kernel_launches()
+    (astats,) = auto_log["predict"]["result"].values()
+    auto = open_ds(affs_path).to_ndarray()
+    ctx_xy = nc["input_shape"][1] - nc["output_shape"][1]
+    tiles_xy = [nc["output_shape"][1] + inc[1], pstats["input_tile"][1] - ctx_xy]
+    keep = away_from_edges(auto.shape[-2:], tiles_xy, SEAM_BAND)
+    diff = np.abs(auto.astype(np.int16) - affs.astype(np.int16))[..., keep]
+    tile_in = [a + b for a, b in zip(nc["input_shape"], inc)]
+    out["auto_tile"] = {
+        "shape_increase": inc, "input_tile": tile_in, "input_voxels": int(np.prod(tile_in)),
+        "budget_input_voxels": scan.default_tile_budget(device),
+        "tiles": astats["tiles"], "streamed": "steps_per_column" in astats,
+        "seconds": auto_log["predict"]["seconds"], "mvox_per_s": astats["voxels_per_sec"] / 1e6,
+        "compared_voxels": int(diff.size), "max_abs_diff": int(diff.max()),
+        "differing_share": float((diff != 0).mean()), "edge_band": SEAM_BAND, "xy_tiles": tiles_xy,
+        "launches": auto_log["predict"]["launches"],
+    }
+    if rc != 0 or out["auto_tile"]["streamed"] or int(diff.max()) > 1:
+        raise AssertionError(f"predict --auto-tile: exit {rc}, {out['auto_tile']}")
+    del affs, auto, diff
+    if device != "cuda":
+        return out, []
+
+    # K1: once per iteration at each training conv, on every predict step at
+    # the stream's convs, once per tile at the auto tile's convs; K2 in segment
+    check_train_launches("cli train", log["train"]["conv_launches"], net_config, iterations)
+    step_tile = [pstats["step_z"], *pstats["input_tile"][1:]]
+    warm, steady = trace_stream_convs(net_config, step_tile, pstats["warm_step_z"])
+    check_stream_launches("cli predict", log["predict"]["conv_launches"], warm, steady, pstats)
+    auto_cases = traced_cases("cli_auto", net_config, (1, *tile_in, 1))
+    check_launches("cli predict --auto-tile", auto_convs, [(auto_cases, astats["tiles"])])
+    seed_launches = log["segment"]["launches"].get("seed_maxima.kernel", 0)
+    if seed_launches < 1 or run_launches["seed_maxima.kernel"] != seed_launches:
+        raise AssertionError(f"cli segment: the seed kernel launches {seed_launches}")
+    out["seed_launches"] = seed_launches
+    out["conv_launches"] = {
+        "train": sum(log["train"]["conv_launches"].values()),
+        "predict": sum(log["predict"]["conv_launches"].values()),
+        "auto_tile": sum(auto_convs.values()),
+    }
+    if sum(run_convs.values()) != out["conv_launches"]["train"] + out["conv_launches"]["predict"]:
+        raise AssertionError(f"cli run: K1 launches outside train and predict: {run_convs}")
+
+    # the tile budget: peak memory of a tile forward per input voxel
+    model = load_params(Model(net_config), load_checkpoint(train["checkpoint"]))
+    base_inc = list(net_config.get("shape_increase", [0, 0, 0]))
+    sweep = [(base_inc, [a + b for a, b in zip(nc["input_shape"], base_inc)])]
+    sweep += [(i, [a + b for a, b in zip(nc["input_shape"], i)]) for i in CLI_SWEEP_INCREASES]
+    sweep.append((inc, tile_in))
+    # and the largest tile the budget admits (a volume past any tile)
+    widest = scan.auto_shape_increase(nc, (10_000, 20_000, 20_000), device=device)
+    sweep.append((widest, [a + b for a, b in zip(nc["input_shape"], widest)]))
+    rows = tile_memory_sweep(model, sweep, seed)
+    del model
+    worst = max(r["bytes_per_input_voxel"] for r in rows)
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["tile_memory"] = {
+        "sweep": rows, "max_bytes_per_input_voxel": worst,
+        "code_bytes_per_input_voxel": scan.TILE_BYTES_PER_INPUT_VOXEL,
+        "auto_tile_peak_gb": rows[-2]["peak_gb"], "widest_tile_peak_gb": rows[-1]["peak_gb"],
+        "budget_gb": scan.TILE_MEMORY_SHARE * total / 1e9, "total_gb": total / 1e9,
+    }
+    if worst > scan.TILE_BYTES_PER_INPUT_VOXEL:
+        raise AssertionError(f"a tile forward took {worst} bytes an input voxel, over the budget's: {out['tile_memory']}")
+    groups = [
+        launch_group(log["train"], train_conv_cases(net_config)),
+        launch_group(log["predict"], stream_conv_cases(net_config, step_tile, pstats["warm_step_z"])),
+        {"by_conv": dict(auto_convs), "cases": auto_cases},
+    ]
+    return out, groups
+
+
 def merge_launches(rows: list, groups, seed: int) -> int:
     """Adds each group's K1 launches to the row of its conv; a conv no row
     holds yet is held against its plain version (``check_conv``, the
@@ -3466,6 +3763,11 @@ def main(argv=None) -> int:
         # block; mws, cc and sharded ws on the synth phase's affinities
         blockwise = blockwise_phase(work, volumes, synth, args.seed)
         emit({"phase": "blockwise", "nvidia_smi": smi, **blockwise})
+    # the command line: prepare round in a subprocess, then run the round
+    # in this process through its main, and predict --auto-tile
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_cli_") as work:
+        cli, cli_groups = cli_phase(work, args.seed, net_config, TRAIN_VOLUME, CLI_ITERATIONS)
+    emit({"phase": "cli", "nvidia_smi": smi, **cli})
     # the stream against the tiled path at its own xy tile, and the share of
     # voxels that differ from the zoo-tiled path, seams included
     vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
@@ -3485,11 +3787,13 @@ def main(argv=None) -> int:
     # the LSD phases' launches, on the rows of their convs (new convs, the
     # refiner's, held against plain here)
     conv_launches += merge_launches(
-        conv_rows, mtlsd_groups + chain_groups + chain2d_groups + synth_groups, args.seed
+        conv_rows, mtlsd_groups + chain_groups + chain2d_groups + synth_groups + cli_groups, args.seed
     )
-    # their segments run K2 at the round's (64,512,512) stack
+    # their segments run K2 at the round's (64,512,512) stack, as the
+    # command line's round does
     lsd_seed_launches = (
         mtlsd["seed_launches"] + chain["seed_launches"] + chain2d["seed_launches"] + synth["seed_launches"]
+        + cli["seed_launches"]
     )
     round_seed_rows[0]["launches"] += lsd_seed_launches
     # the blockwise phase's, on the row of its block shape

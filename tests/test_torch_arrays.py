@@ -1,6 +1,7 @@
-"""The port's array layer: uncompressed Zarr v2 read and written with numpy,
-in the JAX package's on-disk format (checked by opening each side's
-arrays with the other's ``open_ds``), and in-memory arrays."""
+"""The port's array layer: Zarr v2 read and written with numpy, raw or
+zstd/zlib/gzip-compressed, in the JAX package's on-disk format (checked by
+opening each side's arrays with the other's ``open_ds``), ``prepare_ds``'s
+modes, and in-memory arrays; and the prediction's ``BS_INT8`` refusal."""
 
 import json
 import os
@@ -11,6 +12,7 @@ import tensorstore
 
 from bootstrapper_torch.core import arrays as A
 from bootstrapper_torch.core.geometry import Roi
+from bootstrapper_torch.workflows import run_prediction
 from bootstrapper_tpu.core import arrays as J
 from bootstrapper_tpu.core.geometry import Roi as JRoi
 
@@ -61,11 +63,77 @@ def test_reads_uncompressed_arrays_written_by_tensorstore(tmp_path):
 
 
 def test_compressed_array_raises_clearly(tmp_path):
+    """A codec the port does not decode (blosc) fails when the array is
+    opened, naming the codec; so does a filter."""
     path = str(tmp_path / "z.zarr" / "raw")
-    ds = J.prepare_ds(path, (4, 8, 8), (0, 0, 0), (1, 1, 1), np.uint8)  # zstd
+    blosc = {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1}
+    ds = J.prepare_ds(path, (4, 8, 8), (0, 0, 0), (1, 1, 1), np.uint8, compressor=blosc)
     ds[ds.roi] = np.ones((4, 8, 8), np.uint8)
-    with pytest.raises(ValueError, match="uncompressed"):
+    with pytest.raises(ValueError, match="codec 'blosc'"):
         A.open_ds(path)
+    with open(os.path.join(path, ".zarray")) as f:
+        meta = json.load(f)
+    meta.update(compressor=None, filters=[{"id": "delta", "dtype": "|u1"}])
+    with open(os.path.join(path, ".zarray"), "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(ValueError, match="delta"):
+        A.open_ds(path)
+
+
+@pytest.mark.parametrize("compressor", [None, {"id": "zlib", "level": 6}, {"id": "gzip", "level": 5}])
+def test_reads_compressed_arrays_written_by_jax(tmp_path, compressor):
+    """Arrays the JAX package's ``prepare_ds`` writes, with its default
+    compressor (None there means zstd level 3) or zlib or gzip, read back as
+    written, ragged edge chunks, never-written chunks and channels
+    included; the port writes the same codecs for the JAX package to read."""
+    path = str(tmp_path / "j.zarr" / "affs")
+    shape = (3, 5, 21, 19)
+    data = np.random.default_rng(2).integers(0, 2**40, shape, dtype=np.uint64)
+    ds = J.prepare_ds(path, shape, (40, 8, 4), (10, 4, 2), np.uint64, chunk_shape=(3, 2, 8, 8),
+                      compressor=compressor)
+    ds[JRoi((40, 8, 4), (40, 84, 38))] = data[:, :4]  # the last z chunk stays unwritten
+    data[:, 4:] = 0
+    want = compressor or {"id": "zstd", "level": 3}
+    with open(os.path.join(path, ".zarray")) as f:
+        assert json.load(f)["compressor"]["id"] == want["id"]
+    arr = A.open_ds(path)
+    assert tuple(arr.offset) == (40, 8, 4) and tuple(arr.voxel_size) == (10, 4, 2)
+    np.testing.assert_array_equal(arr.to_ndarray(), data)
+    mine = str(tmp_path / "p.zarr" / "affs")
+    out = A.prepare_ds(mine, shape, (40, 8, 4), (10, 4, 2), np.uint64, chunk_shape=(3, 2, 8, 8), compressor=want)
+    out[out.roi] = data
+    np.testing.assert_array_equal(J.open_ds(mine).to_ndarray(), data)
+    np.testing.assert_array_equal(A.open_ds(mine).to_ndarray(), data)
+
+
+def test_prepare_ds_append_keeps_the_array(tmp_path):
+    """``mode="a"`` (and ``"r+"``) keep an existing array, its chunks and
+    its ``.zattrs``, and raise on another frame, as the JAX package's do."""
+    path = str(tmp_path / "a.zarr" / "x")
+    ds = A.prepare_ds(path, (4, 8, 8), (8, 0, 0), (2, 1, 1), np.uint8)
+    ds[ds.roi] = 5
+    with open(os.path.join(path, ".zattrs")) as f:
+        attrs = json.load(f)
+    attrs["extra"] = "kept"
+    with open(os.path.join(path, ".zattrs"), "w") as f:
+        json.dump(attrs, f)
+    for mode in ("a", "r+"):
+        again = A.prepare_ds(path, (4, 8, 8), (8, 0, 0), (2, 1, 1), np.uint8, mode=mode)
+        assert again.roi == ds.roi and int(again.to_ndarray().min()) == 5
+        with open(os.path.join(path, ".zattrs")) as f:
+            assert json.load(f)["extra"] == "kept"
+        with pytest.raises(ValueError, match="already exists with offset"):
+            A.prepare_ds(path, (4, 8, 8), (0, 0, 0), (2, 1, 1), np.uint8, mode=mode)
+    new = A.prepare_ds(str(tmp_path / "a.zarr" / "y"), (2, 4), (0, 0), (1, 1), np.uint8, mode="a")
+    assert new.to_ndarray().sum() == 0  # a missing array is created
+
+
+def test_run_prediction_refuses_int8(tmp_path, monkeypatch):
+    """``BS_INT8=1`` switches the JAX package's convs to int8; the port has
+    no int8 route yet and refuses rather than predict in bf16."""
+    monkeypatch.setenv("BS_INT8", "1")
+    with pytest.raises(ValueError, match="Queue A4"):
+        run_prediction(str(tmp_path / "predict.toml"), device="cpu")
 
 
 @pytest.mark.parametrize("pad_mode", ["reflect", "constant"])
