@@ -29,4 +29,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def resolve_devices(device=None) -> list:
+    """The device list of a multi-device entry point, the counterpart of
+    ``jax.devices()``: ``None`` or ``"cuda"`` means every visible card in
+    order, ``"cpu"`` one CPU device; a list, or a comma-separated string
+    such as ``"cuda:0,cuda:0"`` or ``"cpu,cpu,cpu,cpu"``, is taken as
+    given, repeats included (a repeated entry is a second logical device
+    on the same card or CPU).  A CUDA entry without a GPU raises."""
+    if isinstance(device, str) and "," in device:
+        device = [d.strip() for d in device.split(",")]
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device list")
+        return [resolve_device(d) for d in device]
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+__all__ = ["resolve_device", "resolve_devices"]

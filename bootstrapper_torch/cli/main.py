@@ -8,10 +8,12 @@ The same commands, options, short flags and aliases
 pick the right workflow.  Where the JAX package picks its device through
 ``JAX_PLATFORMS``, the group takes ``--device`` (default ``cuda``) and
 passes it to every entry point that runs on one; without a GPU and without
-``--device cpu`` those fail as ``resolve_device`` does.  What is not
-ported refuses by name: ``predict --sharded`` (ROADMAP Queue A3),
-``proofread`` and ``view`` (Queue A5); ``train --mesh`` raises in
-``run_training``.
+``--device cpu`` those fail as ``resolve_device`` does.  ``--device`` also
+takes a comma list (``cuda:0,cuda:1``, or ``cpu,cpu`` and ``cuda:0,cuda:0``
+for two logical devices on one CPU or card): ``predict --sharded`` and
+``train --mesh`` spread over its entries (``cuda`` alone: every visible
+card), the other commands run on its first.  What is not ported refuses by
+name: ``proofread`` and ``view`` (ROADMAP Queue A5).
 
 ``main(argv)`` runs one command in this interpreter and returns its exit
 code.
@@ -57,7 +59,8 @@ class CommandGroup(click.Group):
 @click.version_option(version=__version__, prog_name="bs-torch")
 @click.option("--device", default="cuda", show_default=True,
               help="device of the entry points: cuda, or cpu for the "
-              "kernels' plain PyTorch versions")
+              "kernels' plain PyTorch versions; a comma list (cuda:0,cuda:1) "
+              "for predict --sharded and train --mesh")
 @click.pass_context
 def cli(ctx, device):
     """bootstrapper_torch: volumetric segmentation bootstrapping on an
@@ -65,8 +68,14 @@ def cli(ctx, device):
     ctx.obj = {"device": device}
 
 
-def _device() -> str:
+def _devices() -> str:
+    """``--device`` as given: a multi-device entry point's list."""
     return click.get_current_context().obj["device"]
+
+
+def _device() -> str:
+    """The device of a one-device entry point: ``--device``'s first entry."""
+    return _devices().split(",")[0].strip()
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +367,7 @@ def train(config_file, max_iterations, batch_size, save_checkpoints_every,
             [int(x) for x in voxel_size.split()] if voxel_size else None
         ),
         mesh=mesh,
-        device=_device(),
+        device=_devices(),
     )
     if result.get("rss_limit_hit") and os.environ.get(
         "BS_RSS_RESPAWN", "1"
@@ -391,8 +400,9 @@ def train(config_file, max_iterations, batch_size, save_checkpoints_every,
               "1 for 3D — one 3D tile already fills the card)")
 @click.option("--sharded", "-s", is_flag=False, flag_value="batch",
               default=None, type=click.Choice(["batch", "spatial"]),
-              help="multi-GPU sharding ('batch' or 'spatial'): not ported "
-              "yet (ROADMAP Queue A3)")
+              help="shard over --device's devices: 'batch' runs a batch of "
+              "tiles (or lockstep z streams), one per device; 'spatial' "
+              "splits one tile's extent over them (halo exchange)")
 @click.option("--auto-tile", is_flag=True,
               help="maximise the inference tile for throughput")
 @click.option("--roi-offset", nargs=3, type=int, default=None)
@@ -404,20 +414,16 @@ def predict(config_file, volume, batch_tiles, sharded, auto_tile,
     """Run chained prediction from a prediction config TOML."""
     from ..workflows.predict import run_prediction
 
-    if sharded:
-        raise click.UsageError(
-            f"--sharded {sharded}: multi-GPU prediction is not ported to "
-            "bootstrapper_torch yet (ROADMAP Queue A3)"
-        )
     result = run_prediction(
         config_file,
         volume=volume,
         batch_tiles=batch_tiles,
+        sharded=sharded,
         auto_tile=auto_tile,
         roi_offset=roi_offset or None,
         roi_shape=roi_shape or None,
         setup_id=setup_id,
-        device=_device(),
+        device=_devices() if sharded else _device(),
     )
     for k, v in result.items():
         cli_echo(

@@ -72,6 +72,17 @@ class Model(nn.Module):
     def from_setup(cls, name_or_path: str, **kw) -> "Model":
         return cls(get_net_config(name_or_path), **kw)
 
+    def replicate(self, device, compute_dtype=None) -> "Model":
+        """A copy of this model on ``device`` with its own parameters, cast
+        to ``compute_dtype`` (default: this model's) once, and an empty
+        packed-weight cache (``unet.Conv.packed``): one per device of a
+        multi-device predictor, so that no replica packs from, or launches
+        on, another device's tensors."""
+        dtype = compute_dtype or self.compute_dtype
+        rep = Model(self.net_config, compute_dtype=dtype, stack_infer=self.stack_infer)
+        rep.load_state_dict(self.state_dict())
+        return rep.to(device=device, dtype=dtype)
+
     @property
     def unet_config(self) -> UNetConfig:
         """The net's config as the JAX package states it (2D for a 2D
@@ -121,15 +132,21 @@ class Model(nn.Module):
         return {name: head(z[0]).float() for name, head in self.heads.items()}, new_state
 
 
-def weighted_mse_loss(pred, target, weights):
+def weighted_mse_loss(pred, target, weights, count=None):
     """Masked MSE: the weighted sum of squared errors over the count of
     elements with ``weights > 0`` (at least 1), as the JAX package's
-    ``models/model.py:weighted_mse_loss``; no host sync."""
+    ``models/model.py:weighted_mse_loss``; no host sync.  ``count`` replaces
+    that count: a rank of a sharded step passes the whole batch's, so that
+    the ranks' losses add up to the one-device loss."""
     scale = weights * (pred - target) ** 2
-    count = torch.count_nonzero(weights > 0)
+    if count is None:
+        count = torch.count_nonzero(weights > 0)
     return torch.sum(scale) / torch.clamp(count, min=1).to(scale.dtype)
 
 
-def multi_output_loss(preds: dict, targets: dict, weights: dict):
-    """Sum of the weighted-MSE losses of all outputs."""
-    return sum(weighted_mse_loss(preds[k], targets[k], weights[k]) for k in preds)
+def multi_output_loss(preds: dict, targets: dict, weights: dict, counts: dict = None):
+    """Sum of the weighted-MSE losses of all outputs (``counts``: each
+    output's normaliser, ``weighted_mse_loss``'s ``count``)."""
+    return sum(
+        weighted_mse_loss(preds[k], targets[k], weights[k], None if counts is None else counts[k]) for k in preds
+    )

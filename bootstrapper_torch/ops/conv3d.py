@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +55,10 @@ COUNTS = {"kernel": 0, "plain": 0, "library": 0, "pack": 0}
 #: CUDA launches by conv: (x shape, w shape) -> count, incremented where
 #: ``COUNTS["kernel"]`` is and reset with it (``ops.reset_launch_counts``)
 KERNEL_LAUNCHES: dict = {}
+
+#: guards the kernel counts and the per-device set-up, which devices driven
+#: from several threads would otherwise update at once
+_LOCK = threading.Lock()
 
 #: the bf16 kernel's instantiated tile widths BN -> rows BM of the CTA tile
 #: (two consumer warpgroups of BM/2 rows each); as in csrc/conv3d.cu
@@ -411,9 +416,10 @@ def conv3d_cuda(x, w, b=None, *, relu: bool = False, packed=None):
             )
     if err != 0:
         raise RuntimeError(f"conv3d kernel launch failed: cudaError {err}")
-    COUNTS["kernel"] += 1
     key = (tuple(x.shape), tuple(w.shape))
-    KERNEL_LAUNCHES[key] = KERNEL_LAUNCHES.get(key, 0) + 1
+    with _LOCK:
+        COUNTS["kernel"] += 1
+        KERNEL_LAUNCHES[key] = KERNEL_LAUNCHES.get(key, 0) + 1
     return out
 
 
@@ -438,12 +444,13 @@ def _lib(device=None):
     index = torch.device("cuda" if device is None else device).index
     if index is None:
         index = torch.cuda.current_device()
-    if index not in _INITIALISED:
-        with torch.cuda.device(index):
-            err = lib.bs_conv3d_init()
-        if err != 0:
-            raise RuntimeError(f"conv3d kernel set-up failed: cudaError {err}")
-        _INITIALISED.add(index)
+    with _LOCK:
+        if index not in _INITIALISED:
+            with torch.cuda.device(index):
+                err = lib.bs_conv3d_init()
+            if err != 0:
+                raise RuntimeError(f"conv3d kernel set-up failed: cudaError {err}")
+            _INITIALISED.add(index)
     return lib
 
 

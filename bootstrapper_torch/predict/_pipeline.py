@@ -6,11 +6,14 @@ loop and ROI-clipped tile writes (the JAX package's
 item i is drained, so the device computes i+1 while the host waits for
 i's outputs and writes them.  ``DeviceIO`` supplies the CUDA side of it:
 pinned host buffers for both copies and one side stream, so a dispatch
-returns as soon as its work is queued.
+returns as soon as its work is queued.  A ``Lane`` is one logical device
+of a predictor: its model (the caller's on one device, a replica of its
+own on each of several) and, on CUDA, its ``DeviceIO``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Callable, Dict, Iterable, Optional, Sequence
@@ -150,29 +153,120 @@ class DeviceIO:
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self._slots = [PinnedBuffers(), PinnedBuffers()]
-        self._next = 0
+        self._slot = self._slots[1]
 
-    def run(self, host_arr: np.ndarray, fn: Callable):
-        """Upload ``host_arr``, run ``fn`` on the side stream, queue the
-        downloads of its dict of outputs.  Returns ``(event, outputs)``:
-        the pinned outputs are valid once the event has completed."""
-        slot = self._slots[self._next]
-        self._next ^= 1
+    def upload(self, host_arr: np.ndarray) -> torch.Tensor:
+        """Take the next slot and queue ``host_arr``'s copy to the device on
+        the side stream, ordered after work queued on the caller's stream
+        (the weights' upload and cast when the model was moved there)."""
+        self._slot = self._slots[0] if self._slot is self._slots[1] else self._slots[1]
         src = torch.from_numpy(host_arr)
-        staged = slot.get("in", src.shape, src.dtype)
+        staged = self._slot.get("in", src.shape, src.dtype)
         staged.copy_(src)
-        # order after work queued on the caller's stream (the weights'
-        # upload and cast when the model was moved to the device)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
-            outs = fn(staged.to(self.device, non_blocking=True))
+            return staged.to(self.device, non_blocking=True)
+
+    def download(self, outs: Dict[str, torch.Tensor]):
+        """Queue the copies of a dict of device outputs into the current
+        slot's pinned buffers on the side stream.  Returns ``(event,
+        outputs)``: the pinned outputs are valid once the event has
+        completed."""
+        with torch.cuda.stream(self.stream):
             host = {}
             for k, v in outs.items():
-                host[k] = slot.get(k, v.shape, v.dtype)
+                host[k] = self._slot.get(k, v.shape, v.dtype)
                 host[k].copy_(v, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self.stream)
         return event, host
+
+    def run(self, host_arr: np.ndarray, fn: Callable):
+        """Upload ``host_arr``, run ``fn`` on the side stream, queue the
+        downloads of its dict of outputs (``download``)."""
+        x = self.upload(host_arr)
+        with torch.cuda.stream(self.stream):
+            outs = fn(x)
+        return self.download(outs)
+
+
+class Lane:
+    """One logical device of a multi-device predictor: its own replica of
+    the model (``Model.replicate``) and, on a CUDA device, its own
+    ``DeviceIO``.  A device list may name one device more than once; each
+    entry is a lane of its own, and what moves between lanes is copied,
+    also between two lanes of one card."""
+
+    def __init__(self, model, device: torch.device, compute_dtype, replicate: bool = True):
+        self.device = device
+        if replicate:
+            model = model.replicate(device, compute_dtype)
+        else:
+            model.compute_dtype = compute_dtype
+            model = model.to(device=device, dtype=compute_dtype)
+        self.model = model.eval()
+        self.io = DeviceIO(device) if device.type == "cuda" else None
+
+    @classmethod
+    def adopt(cls, model, device: torch.device, compute_dtype) -> "Lane":
+        """The lane of a one-device predictor: ``model`` itself, moved to
+        ``device`` and cast, with no copy of its weights."""
+        return cls(model, device, compute_dtype, replicate=False)
+
+    def on_stream(self):
+        """The lane's side stream as the current one (nothing on the CPU)."""
+        return contextlib.nullcontext() if self.io is None else torch.cuda.stream(self.io.stream)
+
+    def upload(self, host_arr: np.ndarray) -> torch.Tensor:
+        if self.io is None:
+            return torch.from_numpy(np.ascontiguousarray(host_arr))
+        return self.io.upload(host_arr)
+
+    def receive(self, t: torch.Tensor, src: "Lane") -> torch.Tensor:
+        """A copy of ``t`` (made on lane ``src``) on this lane's device, made
+        on this lane's stream after ``src``'s queued work."""
+        if self.io is None:
+            return t.clone()
+        if src.io is not None:
+            self.io.stream.wait_stream(src.io.stream)
+        with self.on_stream():
+            out = torch.empty_like(t, device=self.device)
+            out.copy_(t, non_blocking=True)
+        if t.is_cuda:
+            t.record_stream(self.io.stream)  # read here: not to be reused before
+        return out
+
+    def download(self, outs: Dict[str, torch.Tensor]):
+        """``(event or None, outputs)``; ``fetch`` reads it."""
+        if self.io is None:
+            return None, outs
+        return self.io.download(outs)
+
+    def run(self, host_arr: np.ndarray, fn: Callable):
+        """Upload ``host_arr``, run ``fn`` on it on the lane's stream and
+        queue the download of its outputs; ``fetch`` reads the handle."""
+        x = self.upload(host_arr)
+        with self.on_stream():
+            outs = fn(x)
+        return self.download(outs)
+
+
+def fetch(handle) -> Dict[str, np.ndarray]:
+    """Wait for a ``Lane.download`` (or a ``DeviceIO.run``) and return its
+    outputs as numpy arrays."""
+    event, outs = handle
+    if event is not None:
+        event.synchronize()
+    return {k: v.numpy() for k, v in outs.items()}
+
+
+def launches_now() -> int:
+    """The conv kernel's CUDA launches so far (``ops.conv3d.COUNTS``): a
+    multi-device predictor reads it around each lane's forward, all queued
+    from one thread, to count the launches of each logical device."""
+    from ..ops import conv3d
+
+    return conv3d.COUNTS["kernel"]
 
 
 class TileWriter:

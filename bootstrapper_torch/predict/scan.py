@@ -35,7 +35,7 @@ from ..core.arrays import Array, prepare_ds
 from ..core.geometry import Coordinate, Roi
 from ..models.model import Model, head_dims
 from ..models.unet import compute_output_shape
-from ._pipeline import DeviceIO, TileWriter, make_tile_reader, run_pipelined
+from ._pipeline import Lane, TileWriter, fetch, make_tile_reader, run_pipelined
 
 
 #: device memory a tiled bf16 forward of the full-width 3d_affs net takes
@@ -50,6 +50,29 @@ TILE_MEMORY_SHARE = 0.6
 #: budgets made for a device that reports no memory size (the CPU) assume
 #: one H100's
 DEFAULT_DEVICE_BYTES = 80 * 10**9
+
+
+def normalize_on_device(x, is_image: bool):
+    """uint8 input on the device -> float32 in [0, 1], or [-1, 1] for an
+    image input (the host's ``normalize_raw`` arithmetic); other inputs are
+    already normalised."""
+    if x.dtype == torch.uint8:
+        x = x.to(torch.float32) / 255.0
+        if is_image:
+            x = x * 2.0 - 1.0
+    return x
+
+
+def quantize(outs: dict) -> dict:
+    """Per head ``round(clamp(y, 0, 1) * 255)`` as uint8."""
+    return {k: torch.round(torch.clamp(v, 0, 1) * 255).to(torch.uint8) for k, v in outs.items()}
+
+
+@torch.no_grad()
+def forward_uint8(model: Model, x, is_image: bool) -> dict:
+    """One forward of ``model`` on a batch of input tiles on its device ->
+    uint8 outputs per head: what every predictor runs per tile."""
+    return quantize(model(normalize_on_device(x, is_image)))
 
 
 def device_memory_bytes(device=None) -> Optional[int]:
@@ -208,30 +231,16 @@ class Predictor:
         self.input_size = Coordinate(self.input_tile) * self.voxel_size
         self.output_size = Coordinate(self.output_tile) * self.voxel_size
         self.context = (self.input_size - self.output_size) / 2
-        model.compute_dtype = compute_dtype
         model.stack_infer = model.dims == 2
-        self.model = model.to(device=self.device, dtype=compute_dtype).eval()
+        self._lane = Lane.adopt(model, self.device, compute_dtype)
+        self.model = self._lane.model
         self._is_image = "raw" in nc.get("inputs", {"raw": {}})
-        self._io = DeviceIO(self.device) if self.device.type == "cuda" else None
 
-    @torch.no_grad()
     def forward(self, x) -> dict:
         """A batch of input tiles on the device (a 2D setup's: ``(B, adj, H,
         W, C)``) -> uint8 outputs per head, ``(B, *output_tile, C)``."""
-        if x.dtype == torch.uint8:
-            x = x.to(torch.float32) / 255.0
-            if self._is_image:
-                x = x * 2.0 - 1.0
-        outs = self.model(x)
-        return {
-            k: torch.round(torch.clamp(v, 0, 1) * 255).to(torch.uint8)
-            for k, v in outs.items()
-        }
+        return forward_uint8(self.model, x, self._is_image)
 
-    def _dispatch(self, host_arr: np.ndarray):
-        if self._io is None:
-            return None, self.forward(torch.from_numpy(host_arr))
-        return self._io.run(host_arr, self.forward)
 
     def predict(self, raw, outputs: Dict[str, Array], roi: Optional[Roi] = None) -> dict:
         """Run inference over ``roi`` (default: the outputs' ROI), writing
@@ -250,17 +259,11 @@ class Predictor:
             arrs += arrs[-1:] * (B - len(arrs))  # pad; the extra outputs are not written
             return np.stack(arrs)
 
-        def drain(batch, handle):
-            event, outs = handle
-            if event is not None:
-                event.synchronize()
-            writer.drain_batch(batch, {k: v.cpu().numpy() for k, v in outs.items()})
-
         run_pipelined(
             [tiles[i : i + B] for i in range(0, len(tiles), B)],
             read=read_batch,
-            dispatch=self._dispatch,
-            drain=drain,
+            dispatch=lambda arr: self._lane.run(arr, self.forward),
+            drain=lambda batch, handle: writer.drain_batch(batch, fetch(handle)),
         )
         dt = time.perf_counter() - t0
         out_voxels = sum(

@@ -1,5 +1,6 @@
 """Z-streaming prediction: overlap-save inference over deep volumes (the
-JAX package's ``predict/zstream.py``, one device).
+JAX package's ``predict/zstream.py``), on one device or on several in
+lockstep.
 
 The tiled predictor (``scan.Predictor``) recomputes the net's z context
 for every tile: 28 slices of context for 4 output slices at the 3d_affs
@@ -18,6 +19,10 @@ tiles' xy edges, whose outputs depend on where the edge lies (the
 trilinear upsample clamps there).  xy handling (tiling, reflect pad) is
 the tiled predictor's; the volume's z remainder is covered by reads
 reflect-padded past the end, whose writes are clipped.
+
+Over several devices, columns stream in lockstep, one per device, and a
+deep volume with fewer xy columns than devices splits each column's z walk
+into segments (``plan_z_groups``), each a stream of its own.
 """
 
 from __future__ import annotations
@@ -29,14 +34,14 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, resolve_devices
 from ..core.arrays import Array
 from ..core.geometry import Coordinate, Roi
 from ..models.model import Model
 from ..models.unet import compute_output_shape
 from ..models.zstream import stream_eligible
-from ._pipeline import DeviceIO, TileWriter, read_inputs, run_pipelined
-from .scan import DEFAULT_DEVICE_BYTES, device_memory_bytes, tile_rois
+from ._pipeline import Lane, TileWriter, fetch, launches_now, read_inputs, run_pipelined
+from .scan import DEFAULT_DEVICE_BYTES, device_memory_bytes, normalize_on_device, quantize, tile_rois
 
 #: device memory a steady step takes per effective input voxel
 #: ``(s + 8) * xy_in**2`` (bf16, full-width 3d_affs), rounded up from the
@@ -110,13 +115,69 @@ def plan_stream(
     return [0, inc_xy, inc_xy], s, warm_s
 
 
-class ZStreamPredictor:
-    """Tiled-xy, streamed-z inference for one 3D setup on one device.
+#: a warm step's device time over its share of a steady step's by slices,
+#: ``warm_ms / (steady_ms * (s_warm + ctx_z) / s)``: the warm step computes
+#: its whole ``s_warm + ctx_z`` input slices, but only a thin output window.
+#: Measured by ``chip_smoke.py``'s ``multi`` phase on an NVIDIA H100 80GB
+#: HBM3 (power limit 700.00 W), full-width 3d_affs, xy 732: a warm step of
+#: 4 (32 input slices) 125.0 ms, a steady step of 64 579.3 ms, 0.432
+WARM_COST_FACTOR = 0.43
 
-    ``model`` holds the weights; it is moved to ``device`` and cast to
-    ``compute_dtype`` here, as ``scan.Predictor`` does.  ``step_z`` and
-    ``warm_step_z`` set the steady and warm steps' output z (default: the
-    tile's output z)."""
+
+def plan_z_groups(
+    n_z_slices: int,
+    n_cols: int,
+    n_dev: int,
+    s: int,
+    s_warm: int,
+    ctx_z: int,
+    max_groups: int = 64,
+    warm_cost_factor: float = WARM_COST_FACTOR,
+) -> tuple:
+    """Split each xy column's z walk into ``G`` segments streamed on
+    separate devices (the JAX package's ``plan_z_groups``), so that a
+    deep volume with fewer xy columns than devices still fills them.
+
+    Each segment pays a warm step once, so G trades the devices' use
+    against recomputed z context.  Estimated lockstep time, in steady
+    steps: ``cost(G) = n_groups(G) * (n_steady(G) + warm_cost)`` with
+    ``n_groups = ceil(n_cols * G / n_dev)``, ``n_steady = ceil((seg -
+    s_warm) / s)``, ``seg = ceil(n_z / G)`` rounded up to a multiple of
+    ``s_warm`` and ``warm_cost = warm_cost_factor * (s_warm + ctx_z) / s``.
+
+    Returns ``(G, seg_slices, overhead_factor)``: the factor is device
+    slices dispatched per useful output slice (``cost * s * n_dev /
+    (n_cols * n_z)``), for comparison with the tiled path's z context
+    factor.  One device always plans G = 1."""
+    if n_z_slices < 1 or n_cols < 1:
+        raise ValueError("need a non-empty volume")
+    warm_cost = warm_cost_factor * (s_warm + ctx_z) / s
+    best = None
+    g_cap = max(1, min(max_groups, n_z_slices // max(1, s_warm)))
+    for g in range(1, g_cap + 1):
+        seg = -(-(-(-n_z_slices // g)) // s_warm) * s_warm
+        if (g - 1) * seg >= n_z_slices:
+            continue  # the last segment would be empty
+        n_steady = max(0, -(-(seg - s_warm) // s))
+        n_groups = -(-(n_cols * g) // n_dev)
+        cost = n_groups * (n_steady + warm_cost)
+        if best is None or cost < best[0]:
+            best = (cost, g, seg)
+    cost, g, seg = best
+    factor = cost * s * n_dev / (n_cols * n_z_slices)
+    return g, seg, factor
+
+
+class ZStreamPredictor:
+    """Tiled-xy, streamed-z inference for one 3D setup.
+
+    ``model`` holds the weights; on one ``device`` it is moved there and
+    cast to ``compute_dtype``, as ``scan.Predictor`` does.  With
+    ``devices`` (``resolve_devices``'s list; an entry may repeat) each
+    device entry gets a replica and ``len(devices)`` columns stream in
+    lockstep, one per device (``predict``).  ``step_z`` and ``warm_step_z``
+    set the steady and warm steps' output z (default: the tile's output
+    z)."""
 
     def __init__(
         self,
@@ -127,12 +188,12 @@ class ZStreamPredictor:
         compute_dtype=torch.bfloat16,
         step_z: Optional[int] = None,
         warm_step_z: Optional[int] = None,
+        devices: Optional[Sequence] = None,
     ):
         if model.dims != 3 or not stream_eligible(model.unet_config):
             raise ValueError(
                 "z streaming needs a 3D net that never downsamples z; use scan.Predictor"
             )
-        self.device = resolve_device(device)
         self.voxel_size = Coordinate(voxel_size)
         nc = model.net_config
         inc = list(shape_increase) if shape_increase is not None else list(nc.get("shape_increase", [0] * 3))
@@ -167,23 +228,23 @@ class ZStreamPredictor:
         # the z write grid is (offset s_warm, period s): chunks of z extent
         # gcd(s_warm, s) are never straddled
         self.chunk_tile = (math.gcd(self.s_warm, self.s), *self.output_tile[1:])
-        model.compute_dtype = compute_dtype
-        self.model = model.to(device=self.device, dtype=compute_dtype).eval()
         self._is_image = "raw" in nc.get("inputs", {"raw": {}})
-        self._io = DeviceIO(self.device) if self.device.type == "cuda" else None
+        if devices is None:  # one device: the caller's model, moved there
+            self.lanes = [Lane.adopt(model, resolve_device(device), compute_dtype)]
+        else:  # lockstep: a replica per device entry
+            self.lanes = [Lane(model, d, compute_dtype) for d in resolve_devices(devices)]
+        self.B = len(self.lanes)
+        self.devices = [lane.device for lane in self.lanes]
+        self.device, self.model = self.lanes[0].device, self.lanes[0].model
 
     @torch.no_grad()
-    def step(self, x, state: Optional[dict]):
-        """One stream step on the device: uint8 (or float) input slices ->
-        ``({head: uint8 outputs}, new state)``; ``state=None`` is the warm
-        step."""
-        if x.dtype == torch.uint8:
-            x = x.to(torch.float32) / 255.0
-            if self._is_image:
-                x = x * 2.0 - 1.0
-        outs, state = self.model.forward_stream(x, state)
-        quant = {k: torch.round(torch.clamp(v, 0, 1) * 255).to(torch.uint8) for k, v in outs.items()}
-        return quant, state
+    def step(self, x, state: Optional[dict], lane: int = 0):
+        """One stream step on lane ``lane``'s device: uint8 (or float) input
+        slices -> ``({head: uint8 outputs}, new state)``; ``state=None`` is
+        the warm step."""
+        model = self.lanes[lane].model
+        outs, state = model.forward_stream(normalize_on_device(x, self._is_image), state)
+        return quantize(outs), state
 
     def _read_z_reflect(self, arr: Array, roi: Roi) -> np.ndarray:
         """Read ``roi`` reflect-padded about the VOLUME's z boundary.
@@ -215,81 +276,110 @@ class ZStreamPredictor:
         """Stream ``roi`` (default: the outputs' ROI) column by column,
         writing into ``outputs``.  ``raw`` is one Array or a list whose
         channels are concatenated.  Returns tiles (columns x steps),
-        columns, steps per column, seconds, output voxels/s and the plan."""
+        columns, z segments, steps per column, devices, seconds, output
+        voxels/s, the plan and the conv kernel's launches per device.
+
+        Over ``B`` devices, B virtual columns stream in lockstep, each on
+        its own device with its caches there; a short last group is padded
+        with copies of its last column, whose outputs are not written.
+        Where there are fewer xy columns than devices, each column's z walk
+        splits into ``plan_z_groups`` segments, each a stream of its own
+        with its own warm step; an inner segment's writes are clipped at
+        its end, where the next segment's begin (the two compute those
+        slices alike, but only one may own them)."""
         inputs = raw if isinstance(raw, (list, tuple)) else [raw]
         total = roi if roi is not None else next(iter(outputs.values())).roi
         vz = self.voxel_size[0]
+        B = self.B
         t0 = time.perf_counter()
 
-        # xy tiling as scan.Predictor; z walks each column in steps of s
-        # output slices, warm step first; the last step's overhang past the
-        # volume end is computed from reflect-padded reads and clipped
+        # xy tiling as scan.Predictor; z walks each virtual column in steps
+        # of s output slices, warm step first; a step's overhang past its
+        # segment or the volume is computed from reflect-padded reads and
+        # clipped
         yx_total = Roi(total.begin[1:], total.shape[1:])
         yx_tiles = tile_rois(yx_total, Coordinate(self.output_size[1:]))
         n_z = total.shape[0] // vz
-        n_steady = max(0, -(-(n_z - self.s_warm) // self.s))
+        n_groups_z, seg_slices = 1, n_z
+        if B > 1:
+            n_groups_z, seg_slices, _ = plan_z_groups(
+                n_z, len(yx_tiles), B, self.s, self.s_warm, self.input_tile[0] - self.output_tile[0]
+            )
+        vcols = []  # (yx roi, segment z start, segment write clip)
+        for g in range(n_groups_z):
+            z0 = total.begin[0] + g * seg_slices * vz
+            z_end = min(z0 + seg_slices * vz, total.end[0]) if g + 1 < n_groups_z else total.end[0]
+            clip = Roi(Coordinate((z0, *total.begin[1:])), Coordinate((z_end - z0, *total.shape[1:])))
+            vcols += [(yx, z0, clip) for yx in yx_tiles]
+        n_steady = max(0, -(-(seg_slices - self.s_warm) // self.s))
         z_offsets = [(0, self.s_warm * vz)]
         z_offsets += [((self.s_warm + k * self.s) * vz, self.s * vz) for k in range(n_steady)]
-        # (is_warm, [write roi], [write clip])
+        # (is_warm, [write roi per column], [write clip per column])
         items = [
             (
                 k == 0,
-                [Roi(Coordinate((total.begin[0] + dz, *yx.begin)), Coordinate((zext, *yx.shape)))],
-                [total],
+                [Roi(Coordinate((z0 + dz, *yx.begin)), Coordinate((zext, *yx.shape))) for yx, z0, _ in grp],
+                [c for _, _, c in grp],
             )
-            for yx in yx_tiles
+            for grp in (vcols[i : i + B] for i in range(0, len(vcols), B))
             for k, (dz, zext) in enumerate(z_offsets)
         ]
         xy_ctx = Coordinate((0, *self.context[1:]))
         z_shift = Coordinate((self.context[0], 0, 0))
 
-        def read_item(item):
-            is_warm, (wroi,), _ = item
+        def read_window(wroi, is_warm):
             if is_warm:
                 read_roi = wroi.grow(self.context, self.context)
             else:
                 # a steady step continues the input stream: its s new input
                 # slices trail the write window by the right-hand z context
                 read_roi = wroi.grow(xy_ctx, xy_ctx).shift(z_shift)
-            x = read_inputs(inputs, read_roi, self._is_image, read=self._read_z_reflect)
-            return is_warm, x[None]
+            return read_inputs(inputs, read_roi, self._is_image, read=self._read_z_reflect)[None]
+
+        def read_item(item):
+            is_warm, wrois, _ = item
+            arrs = [read_window(w, is_warm) for w in wrois]
+            return is_warm, arrs + arrs[-1:] * (B - len(arrs))  # pad; extras not written
 
         writer = TileWriter(outputs, self.model.net_config["outputs"], self.voxel_size, clip_roi=total)
-        state = None
+        states = [None] * B
+        launches = [0] * B
 
         def dispatch(read):
-            nonlocal state
-            is_warm, arr = read
+            is_warm, arrs = read
+            handles = []
+            for k, (lane, arr) in enumerate(zip(self.lanes, arrs)):
+                def run(x, k=k):
+                    if is_warm:
+                        states[k] = None  # drop the last column's caches first
+                    outs, states[k] = self.step(x, states[k], lane=k)
+                    return outs
 
-            def run(x):
-                nonlocal state
-                if is_warm:
-                    state = None  # drop the last column's caches first
-                outs, state = self.step(x, state)
-                return outs
+                n0 = launches_now()
+                handles.append(lane.run(arr, run))  # queued; waited for in drain
+                launches[k] += launches_now() - n0
+            return handles
 
-            if self._io is None:
-                return None, run(torch.from_numpy(arr))
-            return self._io.run(arr, run)
-
-        def drain(item, handle):
-            event, outs = handle
-            if event is not None:
-                event.synchronize()
-            writer.drain_batch(item[1], {k: v.numpy() for k, v in outs.items()}, clips=item[2])
+        def drain(item, handles):
+            _, wrois, clips = item
+            for j, wroi in enumerate(wrois):
+                outs = fetch(handles[j])
+                writer.drain_batch([wroi], outs, clips=[clips[j]])
 
         run_pipelined(items, read=read_item, dispatch=dispatch, drain=drain)
-        state = None  # free the device caches
+        states = None  # free the device caches
         dt = time.perf_counter() - t0
         out_voxels = len(yx_tiles) * n_z * int(np.prod(self.output_tile[1:]))
         return {
-            "tiles": len(yx_tiles) * len(z_offsets),
+            "tiles": len(vcols) * len(z_offsets),
             "columns": len(yx_tiles),
-            "z_segments": 1,
+            "z_segments": n_groups_z,
             "steps_per_column": len(z_offsets),
+            "devices": B,
             "seconds": dt,
             "voxels_per_sec": out_voxels / dt,
             "input_tile": list(self.input_tile),
             "step_z": self.s,
             "warm_step_z": self.s_warm,
+            "launches_by_device": launches,
         }

@@ -18,12 +18,17 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Callable
+import pickle
+import socket
+import tempfile
+from datetime import timedelta
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.model import Model, multi_output_loss
+from ..models.unet import compute_output_shape
 from ..models.weights import (
     init_params_numpy,
     latest_checkpoint,
@@ -38,7 +43,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "TrainState", "create_train_state", "make_train_step", "loss_fn", "save_checkpoint",
-    "load_checkpoint", "latest_checkpoint",
+    "load_checkpoint", "latest_checkpoint", "make_mesh", "mesh_backend", "MeshRank", "init_mesh",
+    "spawn_mesh", "mesh_slab", "rank_slab", "slab_counts", "check_mesh_slabs", "broadcast_state", "broadcast_batch", "shard_train_step",
 ]
 
 
@@ -78,12 +84,14 @@ def _center_crop_like(x, ref):
     return x[tuple(slices)]
 
 
-def loss_fn(model: Model, batch: dict):
-    """The loss of ``batch`` (``{"input", "targets", "weights"}``)."""
+def loss_fn(model: Model, batch: dict, counts: Optional[dict] = None):
+    """The loss of ``batch`` (``{"input", "targets", "weights"}``);
+    ``counts``: each output's normaliser, where not the batch's own
+    (``models.model.weighted_mse_loss``)."""
     preds = model(batch["input"])
     targets = {k: _center_crop_like(batch["targets"][k], preds[k]) for k in preds}
     weights = {k: _center_crop_like(batch["weights"][k], preds[k]) for k in preds}
-    return multi_output_loss(preds, targets, weights)
+    return multi_output_loss(preds, targets, weights, counts)
 
 
 def make_train_step() -> Callable:
@@ -136,3 +144,322 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     state.step = step
     return state
 
+
+
+# ---------------------------------------------------------------------------
+# mesh training: one process per device entry, over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def make_mesh(
+    n_devices: Optional[int] = None,
+    data: Optional[int] = None,
+    batch_size: Optional[int] = None,
+    spatial: Optional[int] = None,
+    devices: Optional[Sequence] = None,
+) -> list:
+    """A ``(data, space)`` grid of device entries (``devices``, default
+    ``resolve_devices()``), factorised as the JAX package's ``make_mesh``:
+
+    the data axis must divide the global ``batch_size`` and the space axis
+    the leading spatial extent (``spatial``: the gcd of the input's and the
+    output's); as many devices as those allow are used, data parallelism
+    (no halos) first, and devices that cannot be used evenly are left out
+    with a warning.  Without ``batch_size`` and ``spatial`` the balanced
+    split is kept (factors of two shared between the axes, at least 2 data).
+    Returns ``data`` rows of ``space`` device entries each."""
+    if devices is None:
+        from .. import resolve_devices
+
+        devices = resolve_devices(None)
+    devices = list(devices)
+    n = n_devices or len(devices)
+    if data is not None:
+        space = n // data
+    elif batch_size is None and spatial is None:
+        data = n
+        space = 1
+        while data % 2 == 0 and data > 2:
+            data //= 2
+            space *= 2
+    else:
+        b = batch_size or 1
+        best = (0, 0, 0)  # (devices used, data, space)
+        for d in range(1, n + 1):
+            if b % d:
+                continue
+            s = n // d
+            while s > 1 and spatial is not None and spatial % s:
+                s -= 1
+            best = max(best, (d * s, d, s))
+        _, data, space = best
+        if data * space < n:
+            logger.warning(
+                "mesh uses %d of %d devices: batch %s / spatial %s "
+                "constrain the factorisation to (%d data, %d space)",
+                data * space, n, batch_size, spatial, data, space,
+            )
+    return [devices[d * space : (d + 1) * space] for d in range(data)]
+
+
+def mesh_backend(devices: Sequence) -> str:
+    """The collective backend for a list of device entries, chosen before
+    any launch: NCCL when every entry is a distinct CUDA device, gloo when
+    the entries are CPUs or a CUDA device repeats (NCCL refuses two ranks
+    on one card; gloo's all_reduce and broadcast take CUDA tensors)."""
+    devs = [torch.device(d) for d in devices]
+    cuda = [d for d in devs if d.type == "cuda"]
+    if len(cuda) == len(devs) and len({d.index for d in cuda}) == len(cuda) and None not in {d.index for d in cuda}:
+        return "nccl"
+    return "gloo"
+
+
+@dataclasses.dataclass
+class MeshRank:
+    """One rank of a ``(data, space)`` grid: ``rank = d * space + s``.
+    ``group`` is the process group of its data group (its ``space`` ranks,
+    which share one share of the batch), None where ``space`` is 1."""
+
+    rank: int
+    grid: list
+    backend: str
+    group: object = None
+
+    @property
+    def data(self) -> int:
+        return len(self.grid)
+
+    @property
+    def space(self) -> int:
+        return len(self.grid[0])
+
+    @property
+    def world(self) -> int:
+        return self.data * self.space
+
+    @property
+    def coords(self) -> tuple:
+        return divmod(self.rank, self.space)
+
+    @property
+    def leader(self) -> int:
+        """The global rank that draws this rank's data group's batch."""
+        return self.coords[0] * self.space
+
+    @property
+    def device(self) -> torch.device:
+        d, s = self.coords
+        return torch.device(self.grid[d][s])
+
+
+def init_mesh(grid: list, rank: int, backend: str, init_method: str) -> MeshRank:
+    """Join the process group of ``grid`` as ``rank`` and make each data
+    group's subgroup (every rank makes every group, in one order)."""
+    import torch.distributed as dist
+
+    mesh = MeshRank(rank, [list(map(str, row)) for row in grid], backend)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=mesh.world, rank=rank, timeout=timedelta(minutes=30)
+    )
+    if mesh.space > 1:
+        for d in range(mesh.data):
+            g = dist.new_group(list(range(d * mesh.space, (d + 1) * mesh.space)))
+            if d == mesh.coords[0]:
+                mesh.group = g
+    return mesh
+
+
+def free_port() -> int:
+    """A free TCP port on ``localhost`` (for a process group's address)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_worker(rank: int, fn, grid, backend, init_method, args, result_path):
+    import torch.distributed as dist
+
+    mesh = init_mesh(grid, rank, backend, init_method)
+    try:
+        out = fn(mesh, *args)
+        if rank == 0:
+            with open(result_path, "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh(fn, grid: list, args: tuple = ()):
+    """Run ``fn(mesh, *args)`` in one spawned process per device entry of
+    ``grid``, each rank joined to a process group on ``localhost`` over
+    ``mesh_backend``'s choice, logged before the launch.  ``fn`` must be
+    importable (a module-level function).  Returns rank 0's result, which
+    it pickles into a file this call reads back; a rank that fails makes
+    the call raise, and the others are stopped."""
+    import torch.multiprocessing as mp
+
+    entries = [d for row in grid for d in row]
+    backend = mesh_backend(entries)
+    logger.info("mesh of %d ranks over %s", len(entries), backend)
+    init_method = f"tcp://localhost:{free_port()}"
+    with tempfile.TemporaryDirectory(prefix="bs_mesh_") as tmp:
+        result_path = os.path.join(tmp, "rank0.pkl")
+        mp.start_processes(
+            _mesh_worker,
+            args=(fn, [list(map(str, row)) for row in grid], backend, init_method, args, result_path),
+            nprocs=len(entries), join=True, start_method="spawn",
+        )
+        with open(result_path, "rb") as f:
+            return pickle.load(f)
+
+
+def mesh_slab(x: torch.Tensor, dims: int, space: int, s: int, out_rows: int, ctx: int = 0) -> torch.Tensor:
+    """Space rank ``s``'s rows of a batch tensor along the net's first
+    spatial axis (axis ``x.dim() - 1 - dims``: z of a 3D tensor, y of a 2D
+    one's): its ``out_rows // space`` output rows from row ``s * own``, with
+    ``ctx`` rows of context on each side (an input's)."""
+    own = out_rows // space
+    return x.narrow(x.dim() - 1 - dims, s * own, own + 2 * ctx)
+
+
+def check_mesh_slabs(unet_cfg, in_tile, out_tile, grid: list) -> None:
+    """Raise before the first step where the space axis cannot split the
+    training tile into slabs that are valid net inputs (the space ranks of
+    a data group take overlapping slabs of the net's first spatial axis)."""
+    from ..predict.spatial import slab_is_valid
+
+    space = len(grid[0])
+    if space > 1 and (out_tile[0] % space or not slab_is_valid(unet_cfg, in_tile, out_tile, 0, space)):
+        raise ValueError(
+            f"mesh training at ({len(grid)} data, {space} space) splits the training tile "
+            f"{tuple(in_tile)} -> {tuple(out_tile)} along its first axis into slabs that leave the net's "
+            "pooling lattice; bootstrapper_torch does not shard such axes as the JAX package's GSPMD does "
+            "(ROADMAP A3): use a factorisation with space 1"
+        )
+
+
+def _state_tensors(state: TrainState) -> list:
+    """Parameters, then each parameter's Adam moments, in one order."""
+    out = [p.data for p in state.model.parameters()]
+    for p in state.model.parameters():
+        st = state.optimizer.state.get(p)
+        if st:
+            out += [st["exp_avg"], st["exp_avg_sq"]]
+    return out
+
+
+def broadcast_state(state: TrainState, mesh: MeshRank) -> TrainState:
+    """Rank 0's parameters, Adam state and step on every rank."""
+    import torch.distributed as dist
+
+    params = list(state.model.parameters())
+    meta = [state.step, [int(state.optimizer.state[p]["step"]) if p in state.optimizer.state else None for p in params]]
+    dist.broadcast_object_list(meta, src=0)
+    state.step, steps = meta
+    for p, step in zip(params, steps):
+        if step is None:
+            state.optimizer.state.pop(p, None)
+            continue
+        st = state.optimizer.state[p]
+        if "exp_avg" not in st:
+            st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        st["step"] = torch.tensor(float(step))
+    for t in _state_tensors(state):
+        dist.broadcast(t, src=0)
+    return state
+
+
+def broadcast_batch(batch: Optional[dict], mesh: MeshRank) -> dict:
+    """The data group leader's batch on each of its space ranks (``batch``
+    is the leader's; the others pass None)."""
+    import torch.distributed as dist
+
+    if mesh.space == 1:
+        return batch
+    leader = mesh.rank == mesh.leader
+    keys = [("input", None)] + [(part, k) for part in ("targets", "weights") for k in sorted(batch[part])] if leader else None
+    meta = [[(key, tuple(_get(batch, key).shape), _get(batch, key).dtype) for key in keys] if leader else None]
+    dist.broadcast_object_list(meta, src=mesh.leader, group=mesh.group)
+    out: dict = {"targets": {}, "weights": {}}
+    for key, shape, dtype in meta[0]:
+        t = _get(batch, key).contiguous() if leader else torch.empty(shape, dtype=dtype, device=mesh.device)
+        dist.broadcast(t, src=mesh.leader, group=mesh.group)
+        if key[1] is None:
+            out["input"] = t
+        else:
+            out[key[0]][key[1]] = t
+    return out
+
+
+def _get(batch: dict, key: tuple):
+    return batch[key[0]] if key[1] is None else batch[key[0]][key[1]]
+
+
+def rank_slab(batch: dict, unet_cfg, dims: int, space: int, s: int) -> dict:
+    """Space rank ``s``'s slab of its data group's batch: along the net's
+    first spatial axis, its ``out // space`` output rows of the targets and
+    weights (centre-cropped to the net's output first) and of the input
+    with the net's context on each side (``mesh_slab``)."""
+    x = batch["input"]
+    spatial = tuple(x.shape[x.dim() - 1 - dims : -1])
+    out_shape = compute_output_shape(unet_cfg, spatial)
+    ctx = (spatial[0] - out_shape[0]) // 2
+    slab = {"input": mesh_slab(x, dims, space, s, out_shape[0], ctx), "targets": {}, "weights": {}}
+    for part in ("targets", "weights"):
+        for k, t in batch[part].items():
+            slab[part][k] = mesh_slab(_crop_spatial(t, out_shape), dims, space, s, out_shape[0])
+    return slab
+
+
+def slab_counts(slab: dict) -> torch.Tensor:
+    """Each output's count of ``weights > 0`` in ``slab``, by sorted name."""
+    return torch.stack([torch.count_nonzero(slab["weights"][k] > 0) for k in sorted(slab["weights"])]).float()
+
+
+def shard_train_step(mesh: MeshRank, unet_cfg, dims: int) -> Callable:
+    """The sharded step of ``mesh``'s rank: ``(state, group_batch) ->
+    (state, {"loss": loss})``, ``group_batch`` being its data group's share
+    of the batch (``broadcast_batch``).  The rank takes its slab
+    (``rank_slab``), its loss over the whole batch's count of ``weights >
+    0`` (the ranks' counts summed), sums the gradients over all ranks, and
+    takes the same Adam step as every other rank.  The loss returned is the
+    ranks' sum: the one-device loss, as the slabs' outputs are the rows of
+    the whole output."""
+    import torch.distributed as dist
+
+    _, s = mesh.coords
+
+    def step(state: TrainState, batch: dict):
+        slab = rank_slab(batch, unet_cfg, dims, mesh.space, s)
+        counts = slab_counts(slab)
+        dist.all_reduce(counts)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(state.model, slab, dict(zip(sorted(slab["weights"]), counts)))
+        loss.backward()
+        grads = [p.grad for p in state.model.parameters()]
+        flat = torch._utils._flatten_dense_tensors(grads)
+        dist.all_reduce(flat)
+        for g, r in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+            g.copy_(r)
+        state.optimizer.step()
+        state.step += 1
+        loss = loss.detach().reshape(1).clone()
+        dist.all_reduce(loss)
+        return state, {"loss": loss[0]}
+
+    return step
+
+
+def _crop_spatial(t: torch.Tensor, out_shape) -> torch.Tensor:
+    """Centre-crop the last ``len(out_shape)`` spatial axes of a batch
+    tensor (``(N, ..., *spatial, C)``) to ``out_shape``."""
+    dims = len(out_shape)
+    sl = [slice(None)] * t.dim()
+    for i, o in enumerate(out_shape):
+        ax = t.dim() - 1 - dims + i
+        off = (t.shape[ax] - o) // 2
+        sl[ax] = slice(off, off + o)
+    return t[tuple(sl)]

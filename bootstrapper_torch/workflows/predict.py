@@ -1,5 +1,5 @@
 """Prediction workflow: TOML config -> chained inference (the JAX
-package's ``workflows/predict.py``, one device).
+package's ``workflows/predict.py``).
 
 The config is the JAX package's: ``[predict.<volume>]`` (or top-level
 ``[<volume>]``) tables with ``raw_dataset``, ``output_container``,
@@ -20,6 +20,10 @@ in z (``predict/zstream.py``) when the net is 3D and never pools z; other
 volumes, and every 2D link, are tiled (``predict/scan.py``), a 2D link's
 sections ``batch_tiles`` at a time.  ``BS_ZSTREAM=0`` in the environment,
 or an explicit ``batch_tiles``, opts out of streaming.
+
+``sharded`` spreads each link over several devices, as the JAX package's
+``--sharded`` does: lockstep streams or a batch of tiles, one per device
+(``"batch"``), or each tile split over them (``"spatial"``).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_devices
 from ..core.arrays import open_ds
 from ..core.geometry import Roi
 from ..models.model import Model
@@ -42,7 +46,9 @@ from ..predict.scan import (
     prepare_prediction_outputs,
     shrink_shape_increase,
 )
-from ..predict.zstream import ZStreamPredictor, plan_stream
+from ..predict.sharded import ShardedPredictor
+from ..predict.spatial import SpatialShardedPredictor, spatial_shape_increase
+from ..predict.zstream import ZStreamPredictor, plan_stream, plan_z_groups
 from ..utils import tomlio
 
 logger = logging.getLogger(__name__)
@@ -121,34 +127,92 @@ def _align_chain_inputs(model, arrays, labels):
     return arrays, labels
 
 
-def _maybe_zstream(model, raw, out_vox, tiled_out_z, device, compute_dtype):
+def _maybe_zstream(model, raw, out_vox, fit_tile, tiled_out_z, compute_dtype, devices, tiled_out_xy=None):
     """A ``ZStreamPredictor`` where overlap-save z streaming applies, else
-    None (the JAX package's ``_maybe_zstream`` on one device).
+    None (the JAX package's ``_maybe_zstream``).
 
     Streaming needs a 3D net that never pools z and a volume deeper than
     one tiled z pass (``tiled_out_z``: one tiled pass already pays the z
     context once).  The stream plans its own tile (``plan_stream``): the z
-    step is free, so the memory it frees pays for wider xy tiles."""
+    step is free, so the memory it frees pays for wider xy tiles.
+
+    Over several devices the columns stream in lockstep, and two plans
+    compete: xy tiles narrowed until every device gets a column, and the
+    widest xy tiles with each column's z walk split into segments
+    (``plan_z_groups``).  Each is scored by its device work per output
+    voxel (z overhead x xy context x ragged coverage), and the stream is
+    taken only if the winner beats the tiled path's; ``BS_ZSTREAM_PLAN``
+    (``narrow`` or ``wide``) forces a plan family."""
     if os.environ.get("BS_ZSTREAM", "1") != "1":
         return None
     if model.dims != 3 or not stream_eligible(model.unet_config):
         return None
     if out_vox[0] <= tiled_out_z:
         return None
-    inc, step, warm = plan_stream(model.net_config, out_vox, device=resolve_device(device))
+    nc = model.net_config
+    ctx_z = nc["input_shape"][0] - nc["output_shape"][0]
+    ctx_xy = nc["input_shape"][1] - nc["output_shape"][1]
+    n_dev = len(devices)
+
+    def columns(inc):
+        out_shape = [a + b for a, b in zip(nc["output_shape"], inc)]
+        n = 1
+        for v, t in zip(out_vox[1:], out_shape[1:]):
+            n *= -(-v // t)
+        return n, out_shape
+
+    plan_force = os.environ.get("BS_ZSTREAM_PLAN", "auto")
+    min_cols_cands = {n_dev, 1}
+    if plan_force == "narrow":
+        min_cols_cands = {n_dev}
+    elif plan_force == "wide":
+        min_cols_cands = {1}
+
+    cands = []
+    for min_cols in min_cols_cands:
+        inc, step, warm = plan_stream(nc, out_vox, min_columns=min_cols, device=devices[0])
+        inc = fit_tile(inc)
+        ncols, out_shape = columns(inc)
+        if n_dev > 1:
+            _, _, zf = plan_z_groups(out_vox[0], ncols, n_dev, step, warm, ctx_z)
+        else:
+            zf = 1.0  # one device: the whole volume's stream, no segments
+        xyf = ((out_shape[1] + ctx_xy) / out_shape[1]) * ((out_shape[2] + ctx_xy) / out_shape[2])
+        # lockstep columns run the full xy tile also where it overhangs the
+        # volume, so a plan's device work scales with ncols * tile area
+        coverage = (ncols * out_shape[1] * out_shape[2]) / max(out_vox[1] * out_vox[2], 1)
+        cands.append((zf * xyf * coverage, inc, step, warm, ncols))
+    total, s_inc, s_step, s_warm, n_cols = min(cands)
+    if n_dev > 1:
+        tiled_total = ((tiled_out_z + ctx_z) / tiled_out_z) * (
+            ((tiled_out_xy + ctx_xy) / tiled_out_xy) ** 2 if tiled_out_xy else 1.0
+        )
+        if tiled_out_xy:
+            # the same ragged coverage: edge tiles compute the full tile too
+            tiled_total *= (
+                -(-out_vox[1] // tiled_out_xy) * tiled_out_xy
+                * (-(-out_vox[2] // tiled_out_xy)) * tiled_out_xy
+                / max(out_vox[1] * out_vox[2], 1)
+            ) * (-(-out_vox[0] // tiled_out_z) * tiled_out_z / out_vox[0])
+        if total >= tiled_total:
+            logger.info(
+                "z-stream overhead %.3f >= tiled %.3f (%d columns / %d devices): tiled sharding instead",
+                total, tiled_total, n_cols, n_dev,
+            )
+            return None
     predictor = ZStreamPredictor(
         model,
         raw.voxel_size,
-        shape_increase=shrink_shape_increase(model, out_vox, inc),
-        device=device,
+        shape_increase=s_inc,
+        device=devices[0],
         compute_dtype=compute_dtype,
-        step_z=step,
-        warm_step_z=warm,
+        step_z=s_step,
+        warm_step_z=s_warm,
+        devices=devices if n_dev > 1 else None,
     )
     logger.info(
-        "z-streaming inference (%d-slice steps, %s input tile)",
-        predictor.s,
-        "x".join(map(str, predictor.input_tile)),
+        "z-streaming inference over %d device(s) (%d-slice steps, %d columns, %s input tile)",
+        n_dev, predictor.s, n_cols, "x".join(map(str, predictor.input_tile)),
     )
     return predictor
 
@@ -163,6 +227,7 @@ def run_prediction(
     compute_dtype=torch.bfloat16,
     batch_tiles: Optional[int] = None,
     auto_tile: bool = False,
+    sharded: Optional[str] = None,
 ) -> dict:
     """Run the prediction chain of every volume of the config; returns
     per-link stats (tiles, seconds, output voxels/s; a stream adds its
@@ -172,12 +237,26 @@ def run_prediction(
     ``batch_tiles`` sets the tiled predictor's batch (default 32 tiles
     for a 2D setup, 1 for a 3D one) and, as in the JAX package, tiles
     every link instead of streaming it.  ``auto_tile`` picks each 3D
-    link's tile by ``auto_shape_increase`` under ``device``'s budget."""
+    link's tile by ``auto_shape_increase`` under ``device``'s budget.
+
+    ``sharded`` spreads each link over the devices of ``device``
+    (``resolve_devices``: every visible card by default, or a list such as
+    ``"cuda:0,cuda:1"``, in which an entry may repeat): ``"batch"`` streams
+    the columns in lockstep where that wins (``_maybe_zstream``), else runs
+    a batch of tiles, one per device (``predict/sharded.py``);
+    ``"spatial"`` splits each tile over the devices
+    (``predict/spatial.py``), at ``spatial_shape_increase``'s tile unless
+    ``auto_tile`` picks one.  Unsharded, a link runs on the first device."""
     if os.environ.get("BS_INT8", "0") == "1":
         raise ValueError(
             "BS_INT8=1 asks for int8 inference, which bootstrapper_torch has not "
             "ported yet (ROADMAP Queue A4); unset it to predict in bf16"
         )
+    if sharded not in (None, "batch", "spatial"):
+        raise ValueError(f"sharded must be None, 'batch' or 'spatial', not {sharded!r}")
+    devices = resolve_devices(device)
+    if len(devices) > 1 and not sharded:
+        logger.warning("%d devices given, none sharded over: predicting on %s", len(devices), devices[0])
     cfg = tomlio.load(config_file)
     cfg = cfg.get("predict", cfg)
     results = {}
@@ -220,21 +299,50 @@ def run_prediction(
                 in_roi = in_roi.intersect(a.roi)
             out_roi = in_roi if roi is None else roi
             out_vox = tuple(s // v for s, v in zip(out_roi.shape, raw.voxel_size))
+            nc = model.net_config
+
+            def fit_tile(inc):
+                return shrink_shape_increase(model, out_vox, inc)
+
             shape_increase = None
             if auto_tile:
-                shape_increase = auto_shape_increase(model.net_config, raw.spatial_shape, device=device)
+                shape_increase = auto_shape_increase(nc, raw.spatial_shape, device=devices[0])
                 logger.info("auto tile: shape_increase=%s", shape_increase)
-            fitted = shrink_shape_increase(model, out_vox, shape_increase)
-            predictor = None
-            if batch_tiles is None:
-                predictor = _maybe_zstream(
-                    model, raw, out_vox, model.net_config["output_shape"][0] + fitted[0], device, compute_dtype,
-                )
-            if predictor is None:
-                predictor = Predictor(
-                    model, raw.voxel_size, shape_increase=fitted, batch_tiles=batch_tiles, device=device,
+            if sharded == "spatial":
+                if shape_increase is None and model.dims == 3:
+                    shape_increase = spatial_shape_increase(nc, len(devices), raw.spatial_shape)
+                    logger.info("spatial tile: shape_increase=%s", shape_increase)
+                predictor = SpatialShardedPredictor(
+                    model, raw.voxel_size, devices=devices, shape_increase=fit_tile(shape_increase),
                     compute_dtype=compute_dtype,
                 )
+                logger.info(
+                    "spatially sharded inference over %d devices (axis %d, halo %s)",
+                    len(devices), predictor.shard_axis, predictor.halo,
+                )
+            elif sharded:
+                fitted = fit_tile(shape_increase)
+                predictor = _maybe_zstream(
+                    model, raw, out_vox, fit_tile, nc["output_shape"][0] + fitted[0], compute_dtype, devices,
+                    tiled_out_xy=nc["output_shape"][1] + fitted[1],
+                )
+                if predictor is None:
+                    predictor = ShardedPredictor(
+                        model, raw.voxel_size, devices=devices, shape_increase=fitted, compute_dtype=compute_dtype,
+                    )
+                    logger.info("sharded inference over %d devices", len(devices))
+            else:
+                fitted = fit_tile(shape_increase)
+                predictor = None
+                if batch_tiles is None:
+                    predictor = _maybe_zstream(
+                        model, raw, out_vox, fit_tile, nc["output_shape"][0] + fitted[0], compute_dtype, devices[:1],
+                    )
+                if predictor is None:
+                    predictor = Predictor(
+                        model, raw.voxel_size, shape_increase=fitted, batch_tiles=batch_tiles, device=devices[0],
+                        compute_dtype=compute_dtype,
+                    )
             if any(s < m for s, m in zip(out_roi.shape, predictor.output_size)):
                 raise ValueError(f"roi {out_roi} smaller than one output tile {predictor.output_size}")
             outputs = prepare_prediction_outputs(

@@ -160,6 +160,24 @@ Phases, each printing one JSON line:
     zoo's tile, CLI_SWEEP_INCREASES', the auto tile's and the largest the
     budget admits, which must stay under ``predict/scan.py``'s
     TILE_BYTES_PER_INPUT_VOXEL.
+(m) several devices (``multi``), after ``cli``, on a fresh Voronoi sample
+    of TRAIN_VOLUME at full 3d_affs width, over MULTI_DEVICES (two logical
+    devices of the one card): ``predict --sharded`` through ``main``
+    (``BS_ZSTREAM=0``, a batch of tiles one per device) against
+    ``run_prediction`` on one device; the spatially split tile at
+    ``spatial_shape_increase``'s tile against the slab-sized and the whole
+    tile's forwards (also in fp32 and with the library's convs made plain,
+    the witnesses), and ``predict --sharded spatial --auto-tile`` against
+    the one-device auto tile, with the halo bytes and peak memories;
+    lockstep z streaming of MULTI_ZSTREAM_SHAPE (one xy column, two z
+    segments) against the one-device stream, and the warm and steady steps'
+    times behind ``WARM_COST_FACTOR``; mesh training over gloo, (1, 2): one
+    step against the one-device step (loss, reduced gradient), then
+    ``run_training`` MULTI_TRAIN_ITERATIONS and a prediction from its
+    checkpoint, 2d_mtlsd at batch 10 over (2, 1), and one NCCL rank in this
+    process.  K1's launches per logical device (the training ranks report
+    theirs); every new K1 shape is held against the plain version and
+    counted into the ``kernels`` line.
 
 Then the card's name and power limit as nvidia-smi reports them, the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -285,6 +303,10 @@ BLOCKWISE_THRESHOLDS = [0.35, 0.5]
 BLOCKWISE_NUM_WORKERS = 8
 BLOCKWISE_NOISE = 0.15
 BLOCKWISE_BLOCK = (32, 256, 256)
+# blockwise mws runs on the first 16 of the synth volume's 64 sections (2
+# blocks), so that the whole script's `done` stays under 1000 s with the
+# multi phase (the whole depth takes about 64 s)
+BLOCKWISE_MWS_SECTIONS = 16
 SYNTH_BIAS_SWEEP = [[-0.55, -0.8], [-0.7, -0.9]]
 
 
@@ -309,6 +331,28 @@ TILED_INPUT = (32, 412, 412)
 # the zoo's and the auto tile's) of the tile memory sweep
 CLI_ITERATIONS = 20
 CLI_SWEEP_INCREASES = [[28, 312, 312]]
+
+
+# the multi phase: two logical devices on one card; the sharded batch's ROI
+# (the sample's first 8 sections);
+# its deep volume of one xy column; mesh training's iterations; its gates
+MULTI_DEVICES = ["cuda:0", "cuda:0"]
+MULTI_ROI_SECTIONS = 8
+MULTI_ZSTREAM_SHAPE = (130, 640, 640)
+MULTI_TRAIN_ITERATIONS = 10
+MULTI_2D_ITERATIONS = 3
+MULTI_NCCL_STEPS = 2
+MULTI_MAX_DIFF = 1
+MULTI_SEAM_MAX_DIFF = 2
+# a split tile against the whole tile away from the seams, in bf16: the
+# slabs equal the slab-sized forward exactly, but the library route's
+# convs (cuDNN, an algorithm per shape) round the whole tile differently
+# (0.53% of voxels 1 apart on an H100 80GB HBM3 at 700 W), so the gate is
+# about twice that; the witnesses must read 0: the same comparison in
+# fp32 with TF32 off, and in bf16 with those convs made plain
+MULTI_SPLIT_MAX_SHARE = 1e-2
+MULTI_LOSS_RTOL = 1e-2
+MULTI_GRAD_REL_L2 = 0.05
 
 
 def emit(obj) -> None:
@@ -3194,8 +3238,9 @@ def same_partition(a: np.ndarray, b: np.ndarray) -> dict:
 def blockwise_against_in_memory(work: str, affs_path: str, labels_path: str, in_memory_voi: dict, device) -> dict:
     """(2) The blockwise pipelines on the ``synth`` phase's 9-channel
     affinities (its (64,512,512) volume, 8 blocks of BLOCKWISE_BLOCK): mws
-    with the defaults and ``global_bias_sweep = SYNTH_BIAS_SWEEP`` (one RAG
-    for both points), its VOI beside the in-memory mws's; cc at 0.5, whose
+    on its first BLOCKWISE_MWS_SECTIONS sections with the defaults and
+    ``global_bias_sweep = SYNTH_BIAS_SWEEP`` (one RAG for both points), its
+    VOI beside the in-memory mws's on the whole volume; cc at 0.5, whose
     partition and background must equal in-memory ``cc_segmentation``'s;
     ws sharded over 2 worker processes with a ledger, whose fragments and
     partitions must equal one process's."""
@@ -3210,16 +3255,20 @@ def blockwise_against_in_memory(work: str, affs_path: str, labels_path: str, in_
     labels = open_ds(labels_path)
     kw = dict(blockwise=True, block_shape=BLOCKWISE_BLOCK, num_workers=BLOCKWISE_NUM_WORKERS, device=device)
 
-    def run(name, mode, overrides=(), **cfg):
+    def run(name, mode, overrides=(), roi=(None, None), **cfg):
         container = os.path.join(work, f"{name}.zarr")
         toml = segment_toml(os.path.join(work, f"{name}_segment.toml"), affs_path, container, mode, **cfg)
-        return stage(stages, name, lambda: run_segmentation(toml, mode=mode, param_overrides=overrides, **kw))["vol"]
+        return stage(stages, name, lambda: run_segmentation(
+            toml, mode=mode, param_overrides=overrides, roi_offset=roi[0], roi_shape=roi[1], **kw))["vol"]
 
+    affs_roi = open_ds(affs_path).roi
+    vz = open_ds(affs_path).voxel_size[0]
+    mws_roi = (list(affs_roi.begin), [BLOCKWISE_MWS_SECTIONS * vz, *affs_roi.shape[1:]])
     mws_stages: dict = {}
     with timed_stages(blockwise_seg, MWS_STAGES, mws_stages):
-        mws = run("mws", "mws", (f"global_bias_sweep={SYNTH_BIAS_SWEEP}",))
+        mws = run("mws", "mws", (f"global_bias_sweep={SYNTH_BIAS_SWEEP}",), roi=mws_roi)
     out["mws"] = {
-        "seconds": stages["mws"]["seconds"], "stage_seconds": mws_stages,
+        "sections": BLOCKWISE_MWS_SECTIONS, "seconds": stages["mws"]["seconds"], "stage_seconds": mws_stages,
         "voi": {k: compute_metrics(open_ds(p), gt_labels=labels)["voi"] for k, p in mws.items()},
         "in_memory_voi": {k: in_memory_voi.get(k) for k in mws},
         "segments": {k: int(len(np.unique(open_ds(p).to_ndarray())) - 1) for k, p in mws.items()},
@@ -3551,6 +3600,550 @@ def cli_phase(work: str, seed: int, net_config: dict, shape, iterations: int, de
     return out, groups
 
 
+def multi_toml(work: str, name: str, raw_path: str, setup: str, iteration: int) -> str:
+    """A predict TOML of one link, writing under ``multi/<name>``."""
+    from bootstrapper_torch.utils import tomlio
+
+    path = os.path.join(work, f"predict_{name}.toml")
+    tomlio.dump({"predict": {"vol": {
+        "raw_dataset": raw_path, "output_container": os.path.join(work, "multi.zarr"),
+        "chain": [{"setup_dir": setup, "output_prefix": f"multi/{name}", "checkpoint_iteration": iteration}],
+    }}}, path)
+    return path
+
+
+def compare_split(got: np.ndarray, want: np.ndarray, axis: int, seams, band: int) -> dict:
+    """A split tile's uint8 outputs against the whole tile's: the largest
+    difference within ``band`` voxels of a seam (along spatial ``axis`` of
+    ``(C, Z, Y, X)`` arrays) and elsewhere."""
+    diff = np.moveaxis(np.abs(got.astype(np.int16) - want.astype(np.int16)), 1 + axis, 0)
+    near = np.zeros(diff.shape[0], bool)
+    for b in seams:
+        near[max(0, b - band) : b + band] = True
+    return {
+        "shape": list(got.shape), "axis": axis, "seams": list(seams), "band": band,
+        "max_abs_diff_near_seams": int(diff[near].max(initial=0)),
+        "max_abs_diff_elsewhere": int(diff[~near].max(initial=0)),
+        "differing_share_elsewhere": float((diff[~near] != 0).mean()),
+        "differing_share": float((diff != 0).mean()),
+    }
+
+
+@contextlib.contextmanager
+def fp32_exact():
+    """fp32 convs and matmuls without TF32 inside, as before after."""
+    import torch
+
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@contextlib.contextmanager
+def library_as_plain():
+    """The library route's convs (``conv3d_library``: cuDNN, its algorithm
+    picked per shape) computed by the plain version inside, one fixed
+    order of fp32 sums for each output; the library again after."""
+    from bootstrapper_torch.ops import conv3d as C
+
+    before = C.conv3d_library
+    C.conv3d_library = C.conv3d_plain
+    try:
+        yield
+    finally:
+        C.conv3d_library = before
+
+
+def split_ok(cmp: dict) -> bool:
+    """``compare_split``'s result within the gates: near a seam at most
+    MULTI_SEAM_MAX_DIFF; elsewhere at most MULTI_MAX_DIFF on under
+    MULTI_SPLIT_MAX_SHARE of voxels."""
+    return (
+        cmp["max_abs_diff_near_seams"] <= MULTI_SEAM_MAX_DIFF and cmp["max_abs_diff_elsewhere"] <= MULTI_MAX_DIFF
+        and cmp["differing_share_elsewhere"] < MULTI_SPLIT_MAX_SHARE
+    )
+
+
+def mesh_step_check(mesh, net_config: dict, seed: int, lr: float) -> dict:
+    """A rank of the ``multi`` phase's one-step check (spawned): rank 0 holds
+    parameters from ``seed`` (the others zeros, so that the broadcast is what
+    makes them equal) and, first, the one-device gradient and loss on the
+    whole batch; then one sharded step over the mesh, after which each
+    parameter's ``grad`` is the reduced gradient.  Rank 0 returns the loss
+    against the one-device loss, the reduced gradient's relative L2
+    distance from the one-device gradient (over all parameters, and the
+    largest of one parameter), the step's ms, and every rank's K1 launches
+    by conv."""
+    import torch
+    import torch.distributed as dist
+
+    from bootstrapper_torch.models import Model, init_params_numpy, load_params
+    from bootstrapper_torch.ops import conv3d_kernel_launches, reset_launch_counts
+    from bootstrapper_torch.train import loop as L
+
+    dev = mesh.device
+    model = Model(net_config)
+    if mesh.rank == 0:
+        load_params(model, init_params_numpy(net_config, seed))
+    model = model.to(dev)
+    rng = np.random.default_rng(seed)
+    out = net_config["output_shape"]
+    batch = {
+        "input": torch.tensor(rng.uniform(-1, 1, (1, *net_config["input_shape"], 1)), dtype=torch.float32),
+        "targets": {"3d_affs": torch.tensor((rng.random((1, *out, 9)) > 0.5), dtype=torch.float32)},
+        "weights": {"3d_affs": torch.tensor((rng.random((1, *out, 9)) > 0.2), dtype=torch.float32)},
+    }
+    batch = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev)) for k, v in batch.items()}
+    ref = {}
+    if mesh.rank == 0:
+        loss = L.loss_fn(model, batch)
+        loss.backward()
+        ref = {"loss": float(loss.detach()), "grads": [p.grad.detach().clone() for p in model.parameters()]}
+        model.zero_grad(set_to_none=True)
+    state = L.broadcast_state(L.TrainState(0, model, L.make_optimizer(model, lr)), mesh)
+    group = L.broadcast_batch(batch if mesh.rank == mesh.leader else None, mesh)
+    step = L.shard_train_step(mesh, model.unet_config, model.dims)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, group)
+    loss = float(metrics["loss"])  # waits for the step
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = [None] * mesh.world
+    dist.all_gather_object(launches, conv3d_kernel_launches())
+    if mesh.rank != 0:
+        return {}
+    num = den = 0.0
+    worst = 0.0
+    for p, g in zip(model.parameters(), ref["grads"]):
+        d2, g2 = float(((p.grad - g).double() ** 2).sum()), float((g.double() ** 2).sum())
+        num, den = num + d2, den + g2
+        if g2 > 0:
+            worst = max(worst, (d2 / g2) ** 0.5)
+    return {
+        "loss": loss, "one_device_loss": ref["loss"], "loss_rel_diff": abs(loss - ref["loss"]) / abs(ref["loss"]),
+        "grad_rel_l2": (num / den) ** 0.5, "worst_param_grad_rel_l2": worst, "step_ms": ms,
+        "conv_launches_by_rank": launches,
+    }
+
+
+def mesh_check_then_train(mesh, net_config: dict, seed: int, lr: float, cfg: dict, batch_size: int,
+                          compute_dtype, spawned_at: float) -> dict:
+    """A rank of the ``multi`` phase's 3D mesh run (spawned): the one-step
+    check (``mesh_step_check``), then the training loop that each rank of
+    ``run_training(mesh=True)`` runs (``workflows.train._mesh_rank``) on
+    ``cfg``, in the same process group (one spawn of the ranks, not two).
+    Also the seconds from ``spawned_at`` (the parent's ``time.time()``
+    before the spawn) to the joined process group, of the check and of
+    the training."""
+    import torch
+
+    from bootstrapper_torch.ops import reset_launch_counts
+    from bootstrapper_torch.workflows import train as T
+
+    t0 = time.time()
+    check = mesh_step_check(mesh, net_config, seed, lr)
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_launch_counts()
+    t1 = time.time()
+    train = T._mesh_rank(mesh, cfg, compute_dtype, batch_size)
+    seconds = {"to_process_group": t0 - spawned_at, "check": t1 - t0, "train": time.time() - t1}
+    return {"check": check, "train": train, "seconds": seconds}
+
+
+def multi_phase(work: str, seed: int, net_config: dict, net_config_2d: dict, shape, devices: list,
+                device="cuda") -> tuple:
+    """Multi-device prediction and mesh training on the logical devices
+    ``devices`` (two entries of one card on the GPU host), on a fresh
+    Voronoi sample of ``shape`` at ``net_config``'s width (3D) and
+    ``net_config_2d``'s (the 2D setup), each against the one-device path:
+
+    - ``predict --sharded`` through the command line's ``main`` with
+      ``BS_ZSTREAM=0`` on the first MULTI_ROI_SECTIONS sections: a batch of
+      tiles, one per device,
+      equal to ``run_prediction``'s one-device result at the same tile;
+    - ``spatial_small``: ``SpatialShardedPredictor`` at
+      ``spatial_shape_increase``'s tile on one tile of the sample: each
+      slab equal to a forward of the slab-sized tile, the whole split tile
+      against the whole tile's forward (within SEAM_BAND voxels of the
+      seam by at most MULTI_SEAM_MAX_DIFF, elsewhere ``split_ok``'s), and
+      0 apart elsewhere in fp32 with TF32 off (``fp32_exact``) and in bf16
+      with the library route's convs made plain (``library_as_plain``);
+    - ``spatial_wide``: ``predict --sharded spatial --auto-tile`` through
+      ``main``, one auto tile split in two, against ``predict --auto-tile``
+      on one device, held as the small tile; the peak memory of each split
+      tile against its unsplit forward, and the halo bytes copied;
+    - ``zstream``: ``run_prediction(sharded="batch")`` over a deep volume of
+      one xy column (MULTI_ZSTREAM_SHAPE), streamed in lockstep in
+      ``plan_z_groups`` segments, against the one-device stream; the warm
+      and steady steps' device ms, and ``WARM_COST_FACTOR`` from them;
+    - ``train``: two ranks over gloo, factorisation (1, 2): one step from
+      one state on one batch against the one-device step
+      (``mesh_step_check``), then, in the same spawn, the loop each rank of
+      ``run_training(mesh=True)`` runs, MULTI_TRAIN_ITERATIONS, whose
+      checkpoint ``run_prediction`` loads; 2d_mtlsd at batch 10 through
+      ``run_training``, (2, 1), MULTI_2D_ITERATIONS; and one rank over NCCL
+      (world size 1) for MULTI_NCCL_STEPS steps in this process.
+
+    Two ranks share one card and gloo stages CUDA tensors through the
+    host, so the times are those of correctness runs.  Returns the phase's
+    line and K1's launch groups (``merge_launches``), the training ranks'
+    included."""
+    import torch
+
+    from bootstrapper_torch import resolve_devices
+    from bootstrapper_torch.cli.main import main as bs
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models import Model, init_params_numpy, load_params
+    from bootstrapper_torch.models.weights import save_checkpoint
+    from bootstrapper_torch.ops import conv3d_kernel_launches, reset_launch_counts
+    from bootstrapper_torch.predict import scan, zstream
+    from bootstrapper_torch.predict.spatial import SpatialShardedPredictor, spatial_shape_increase
+    from bootstrapper_torch.train import loop as L
+    from bootstrapper_torch.utils import tomlio
+    from bootstrapper_torch.workflows import run_prediction, run_training
+
+    cuda = device == "cuda"
+    dev_list = ",".join(devices)
+    out = {"volume": list(shape), "devices": list(devices), "nvidia_smi": nvidia_smi() if cuda else None}
+    groups, launches = [], {}
+    t_phase = time.perf_counter()
+    volumes = write_round_sample(work, shape, seed, device)
+    raw_path = volumes["vol"]["raw_dataset"]
+    raw = open_ds(raw_path)
+    setup = os.path.join(work, "setup", "3d_affs")
+    os.makedirs(setup)
+    write_setup_config(setup, net_config)
+    params = init_params_numpy(net_config, seed)
+    save_checkpoint(setup, params, 1)
+    nc = net_config
+
+    def timed(fn):
+        """``fn()`` with the launch counts zeroed first; its K1 launches by
+        conv, its result and seconds."""
+        if cuda:
+            torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return result, conv3d_kernel_launches(), time.perf_counter() - t0
+
+    # predict --sharded: a batch of tiles, one per device (tiled, not streamed)
+    vs = raw.voxel_size
+    roi = [[0, 0, 0], [min(MULTI_ROI_SECTIONS, shape[0]) * vs[0], shape[1] * vs[1], shape[2] * vs[2]]]
+    roi_args = ["--roi-offset", *map(str, roi[0]), "--roi-shape", *map(str, roi[1])]
+    os.environ["BS_ZSTREAM"] = "0"
+    try:
+        log: dict = {}
+        with timed_workflows(log), contextlib.redirect_stdout(sys.stderr):
+            toml_b = multi_toml(work, "batch", raw_path, setup, 1)
+            rc, by_conv, secs = timed(lambda: bs(["--device", dev_list, "predict", toml_b, *roi_args, "--sharded"]))
+        bstats = log["predict"]["result"]["vol/multi/batch"]
+        toml_1 = multi_toml(work, "batch_one", raw_path, setup, 1)
+        ostats, _, one_secs = timed(lambda: run_prediction(
+            toml_1, device=devices[0], roi_offset=roi[0], roi_shape=roi[1]))
+    finally:
+        del os.environ["BS_ZSTREAM"]
+    got = open_ds(os.path.join(work, "multi.zarr", "multi", "batch", "3d_affs")).to_ndarray()
+    want = open_ds(os.path.join(work, "multi.zarr", "multi", "batch_one", "3d_affs")).to_ndarray()
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    out["sharded_batch"] = {
+        "roi_voxels": roi, "tiles": bstats["tiles"], "devices": bstats["devices"], "seconds": secs,
+        "mvox_per_s": bstats["voxels_per_sec"] / 1e6,
+        "one_device_mvox_per_s": ostats["vol/multi/batch_one"]["voxels_per_sec"] / 1e6,
+        "one_device_seconds": one_secs, "max_abs_diff": int(diff.max()),
+        "differing_share": float((diff != 0).mean()),
+    }
+    launches["sharded_batch"] = bstats["launches_by_device"]
+    groups.append({"by_conv": dict(by_conv), "cases": conv_cases() if cuda else []})  # the main path's tile
+    if rc != 0 or "steps_per_column" in bstats or int(diff.max()) > MULTI_MAX_DIFF or bstats["devices"] != len(devices):
+        raise AssertionError(f"predict --sharded: exit {rc}, {out['sharded_batch']}")
+    del got, want, diff
+
+    # --sharded spatial at spatial_shape_increase's tile, on one tile
+    inc = spatial_shape_increase(nc, len(devices), raw.spatial_shape)
+    model = load_params(Model(nc), params)
+    sp = SpatialShardedPredictor(model, raw.voxel_size, devices=devices, shape_increase=inc)
+    wroi = scan.tile_rois(raw.roi, sp.output_size)[0]  # the sample's first tile
+    x = sp.read_tile([raw], wroi)
+    if cuda:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    handles, by_conv, _ = timed(lambda: sp.dispatch(x))
+    split = sp.gather(handles)["3d_affs"]
+    split_peak = torch.cuda.max_memory_allocated() - held if cuda else None
+    one = scan.Predictor(model, raw.voxel_size, shape_increase=[0, 0, 0], device=devices[0])
+    own, rows, ax = sp.own_out, sp.slab_rows, sp.shard_axis
+    slab_outs = []
+    for k in range(len(devices)):
+        xs = np.ascontiguousarray(np.take(x, range(k * own, k * own + rows), axis=ax))[None]
+        slab_outs.append(one.forward(torch.from_numpy(xs).to(one.device))["3d_affs"].cpu().numpy())
+    whole_p = scan.Predictor(model, raw.voxel_size, shape_increase=inc, device=devices[0])
+    xw = torch.from_numpy(np.ascontiguousarray(np.take(x, range(sp.in_tile[ax]), axis=ax))[None]).to(whole_p.device)
+    if cuda:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    whole = whole_p.forward(xw)["3d_affs"].cpu().numpy()
+    whole_peak = torch.cuda.max_memory_allocated() - held if cuda else None
+    slab_diff = np.abs(split.astype(np.int16) - np.concatenate(slab_outs, axis=1 + ax).astype(np.int16))
+    chw = lambda a: np.moveaxis(a[0], -1, 0)  # noqa: E731
+    seams = [own * k for k in range(1, len(devices))]
+    cmp = compare_split(chw(split), chw(whole), ax, seams, SEAM_BAND)
+    # the witnesses, each 0 apart away from the seam: the same split and
+    # whole tile in fp32 with TF32 off (the split itself is exact), and in
+    # bf16 with the library route's convs made plain (the bf16 difference
+    # is the library's per-shape rounding)
+
+    def split_and_whole(m, dtype):
+        spw = SpatialShardedPredictor(m, raw.voxel_size, devices=devices, shape_increase=inc, compute_dtype=dtype)
+        got = spw.gather(spw.dispatch(x))["3d_affs"]
+        ref = scan.Predictor(m, raw.voxel_size, shape_increase=inc, device=devices[0], compute_dtype=dtype)
+        return compare_split(chw(got), chw(ref.forward(xw)["3d_affs"].cpu().numpy()), ax, seams, SEAM_BAND)
+
+    with fp32_exact():
+        cmp32 = split_and_whole(load_params(Model(nc, compute_dtype=torch.float32), params), torch.float32)
+    with library_as_plain():
+        cmp_plain = split_and_whole(model, torch.bfloat16) if cuda else None
+    out["spatial_small"] = {
+        "shape_increase": inc, "input_tile": list(sp.in_tile), "output_tile": list(sp.out_tile),
+        "shard_axis": ax, "hops": list(sp.hops), "halo": list(sp.halo), "halo_bytes": sp.halo_bytes,
+        "slab_max_abs_diff": int(slab_diff.max()), "vs_whole": cmp, "vs_whole_fp32": cmp32,
+        "vs_whole_library_plain": cmp_plain,
+        "split_peak_gb": None if split_peak is None else split_peak / 1e9,
+        "whole_peak_gb": None if whole_peak is None else whole_peak / 1e9,
+    }
+    launches["spatial_small"] = list(sp.launches_by_device)
+    # a slab is the net's base tile: the training forward's shapes
+    groups.append({"by_conv": dict(by_conv), "cases": train_conv_cases(nc) if cuda else []})
+    witnesses = [cmp32] + ([cmp_plain] if cuda else [])
+    if (int(slab_diff.max()) > MULTI_MAX_DIFF or not split_ok(cmp)
+            or any(w["max_abs_diff_elsewhere"] != 0 for w in witnesses)):
+        raise AssertionError(f"--sharded spatial at {sp.in_tile}: {out['spatial_small']}")
+    # the whole tile's convs, launched to compare: held against the plain
+    # version, counted as no launch of the path
+    whole_cases = traced_cases("multi_spatial_whole", nc, (1, *sp.in_tile, 1))
+    groups.append({"by_conv": {conv_key(c): 0 for c in whole_cases}, "cases": whole_cases})
+    del sp, one, whole_p, handles, x, xw, split, whole, slab_outs
+
+    # --sharded spatial --auto-tile: one wide tile split in two, through main
+    log = {}
+    for name, args in (("wide", ["--device", dev_list]), ("wide_one", ["--device", devices[0]])):
+        toml_w = multi_toml(work, name, raw_path, setup, 1)
+        extra = ["--sharded", "spatial"] if name == "wide" else []
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with timed_workflows(log), contextlib.redirect_stdout(sys.stderr):
+            rc, by_conv, secs = timed(lambda: bs([*args, "predict", toml_w, "--auto-tile", *extra]))
+        if rc != 0:
+            raise AssertionError(f"predict --auto-tile {' '.join(extra)}: exit {rc}")
+        log[name] = {
+            "stats": log["predict"]["result"][f"vol/multi/{name}"], "seconds": secs, "by_conv": by_conv,
+            "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9 if cuda else None,
+        }
+    wide, wide_one = log["wide"], log["wide_one"]
+    winc = scan.auto_shape_increase(nc, raw.spatial_shape, device=devices[0])
+    w_in = [a + b for a, b in zip(nc["input_shape"], winc)]
+    w_out = [a + b for a, b in zip(nc["output_shape"], winc)]
+    w_ax = wide["stats"]["shard_axis"]
+    got = open_ds(os.path.join(work, "multi.zarr", "multi", "wide", "3d_affs")).to_ndarray()
+    want = open_ds(os.path.join(work, "multi.zarr", "multi", "wide_one", "3d_affs")).to_ndarray()
+    own = w_out[w_ax] // len(devices)
+    cmp = compare_split(got, want, w_ax, [own * k for k in range(1, len(devices))], SEAM_BAND)
+    out["spatial_wide"] = {
+        "input_tile": w_in, "output_tile": w_out, "tiles": wide["stats"]["tiles"], "shard_axis": w_ax,
+        "halo_bytes": wide["stats"]["halo_bytes"], "seconds": wide["seconds"],
+        "mvox_per_s": wide["stats"]["voxels_per_sec"] / 1e6,
+        "one_device_mvox_per_s": wide_one["stats"]["voxels_per_sec"] / 1e6,
+        "peak_gb": wide["peak_gb"], "one_device_peak_gb": wide_one["peak_gb"], "vs_whole": cmp,
+    }
+    launches["spatial_wide"] = wide["stats"]["launches_by_device"]
+    slab_in = list(w_in)
+    slab_in[w_ax] = own + (w_in[w_ax] - w_out[w_ax])
+    groups.append({"by_conv": dict(wide["by_conv"]), "cases": traced_cases("multi_spatial_slab", nc, (1, *slab_in, 1))})
+    if wide["stats"]["tiles"] != 1 or not split_ok(cmp):
+        raise AssertionError(f"--sharded spatial --auto-tile: {out['spatial_wide']}")
+    del got, want
+
+    # lockstep z streaming: a deep volume of one xy column
+    from bootstrapper_torch.core.arrays import prepare_ds
+
+    zshape = MULTI_ZSTREAM_SHAPE
+    zraw = prepare_ds(os.path.join(work, "deep.zarr", "raw"), zshape, (0, 0, 0), raw.voxel_size, np.uint8)
+    # the sample's texture, wrapped around to the deep volume's shape
+    zraw[zraw.roi] = np.pad(raw.to_ndarray(), [(0, max(0, a - b)) for a, b in zip(zshape, shape)], mode="wrap")[
+        : zshape[0], : zshape[1], : zshape[2]
+    ]
+    log = {}
+    with timed_workflows(log), contextlib.redirect_stdout(sys.stderr):
+        toml_z = multi_toml(work, "deep", zraw.path, setup, 1)
+        zs, z_by_conv, z_secs = timed(lambda: run_prediction(toml_z, device=devices, sharded="batch"))
+        toml_z1 = multi_toml(work, "deep_one", zraw.path, setup, 1)
+        zs1, _, z1_secs = timed(lambda: run_prediction(toml_z1, device=devices[0]))
+    zs, zs1 = zs["vol/multi/deep"], zs1["vol/multi/deep_one"]
+    got = open_ds(os.path.join(work, "multi.zarr", "multi", "deep", "3d_affs")).to_ndarray()
+    want = open_ds(os.path.join(work, "multi.zarr", "multi", "deep_one", "3d_affs")).to_ndarray()
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    ctx_z = nc["input_shape"][0] - nc["output_shape"][0]
+    out["zstream"] = {
+        "volume": list(zshape), "columns": zs.get("columns"), "z_segments": zs.get("z_segments"),
+        "devices": zs.get("devices"), "step_z": zs.get("step_z"), "warm_step_z": zs.get("warm_step_z"),
+        "input_tile": zs.get("input_tile"), "seconds": z_secs, "mvox_per_s": zs["voxels_per_sec"] / 1e6,
+        "one_device_seconds": z1_secs, "one_device_mvox_per_s": zs1["voxels_per_sec"] / 1e6,
+        "max_abs_diff": int(diff.max()), "differing_share": float((diff != 0).mean()),
+        "plan_z_groups": list(zstream.plan_z_groups(zshape[0], 1, len(devices), zs.get("step_z", 1),
+                                                     zs.get("warm_step_z", 1), ctx_z)),
+    }
+    launches["zstream"] = zs.get("launches_by_device")
+    step_tile = [zs["step_z"], *zs["input_tile"][1:]] if "step_z" in zs else None
+    if (
+        "steps_per_column" not in zs or zs["columns"] != 1 or zs["z_segments"] < 2
+        or int(diff.max()) > ZSTREAM_MAX_DIFF or float((diff != 0).mean()) >= ZSTREAM_MAX_SHARE
+    ):
+        raise AssertionError(f"lockstep z stream: {out['zstream']}")
+    groups.append({"by_conv": dict(z_by_conv), "cases": stream_conv_cases(nc, step_tile, zs["warm_step_z"]) if cuda else []})
+    del got, want, diff
+    if cuda:  # the warm cost: one warm and one steady step between CUDA events
+        zinc = [0, step_tile[1] - nc["input_shape"][1], step_tile[2] - nc["input_shape"][2]]
+        zp = zstream.ZStreamPredictor(model, raw.voxel_size, shape_increase=zinc, device=devices[0],
+                                      step_z=zs["step_z"], warm_step_z=zs["warm_step_z"])
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        xw = torch.randint(0, 256, (1, *zp.warm_input_tile, 1), generator=gen, device="cuda", dtype=torch.uint8)
+        xs = torch.randint(0, 256, (1, *step_tile, 1), generator=gen, device="cuda", dtype=torch.uint8)
+        _, state = zp.step(xw, None)
+        warm_ms = cuda_time_ms(lambda: zp.step(xw, None), iters=2, queued=True)
+        steady_ms = cuda_time_ms(lambda: zp.step(xs, state), iters=2, queued=True)
+        share = (zp.s_warm + ctx_z) / zp.s
+        out["zstream"].update({
+            "warm_ms": warm_ms, "steady_ms": steady_ms, "warm_slices_over_steady": share,
+            "warm_cost_factor_measured": warm_ms / (steady_ms * share),
+            "warm_cost_factor_in_code": zstream.WARM_COST_FACTOR,
+        })
+        del zp, state, xw, xs
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # mesh training: two ranks over gloo
+    mesh_backend = L.mesh_backend(devices)
+    samples = [{"raw": raw_path, "labels": volumes["vol"]["labels_dataset"],
+                "mask": volumes["vol"]["labels_mask_dataset"]}]
+    kw = {} if cuda else {"compute_dtype": torch.float32}
+
+    def train_config(name, setup_nc, iterations, batch):
+        tsetup = os.path.join(work, "train", name)
+        os.makedirs(tsetup)
+        write_setup_config(tsetup, setup_nc)
+        cfg = {"setup_dir": tsetup, "samples": samples, "voxel_size": volumes["vol"]["voxel_size"],
+               "max_iterations": iterations, "save_checkpoints_every": iterations, "save_snapshots_every": 0,
+               "mesh": True}
+        if batch:
+            cfg["batch_size"] = batch
+        ttoml = os.path.join(work, f"train_{name}.toml")
+        tomlio.dump({"train": cfg}, ttoml)
+        return tsetup, ttoml, cfg
+
+    def train_line(name, setup_dir, res, secs, iterations, grid):
+        with open(os.path.join(setup_dir, "log", "loss.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        if res["iterations"] != iterations or not all(np.isfinite(e["loss"]) for e in logged):
+            raise AssertionError(f"mesh training {name}: {res}, losses {logged}")
+        return {
+            "iterations": res["iterations"], "final_loss": res["final_loss"], "seconds": secs,
+            "ms_per_iteration": 1e3 * logged[-1]["seconds"] / iterations, "grid": grid,
+        }
+
+    # 3d_affs over (1, 2): the step against the one-device step, then the
+    # training loop of run_training's ranks, in one spawn of the two ranks
+    grid = L.make_mesh(len(devices), batch_size=1, spatial=math.gcd(nc["input_shape"][0], nc["output_shape"][0]),
+                       devices=devices)
+    tsetup, _, cfg3 = train_config("3d_affs", nc, MULTI_TRAIN_ITERATIONS, None)
+    both, _, secs = timed(lambda: L.spawn_mesh(
+        mesh_check_then_train, grid,
+        args=(nc, seed, 0.5e-4, cfg3, 1, kw.get("compute_dtype", torch.bfloat16), time.time())))
+    check, res = both["check"], both["train"]
+    by_rank = check.pop("conv_launches_by_rank")
+    launches["train_step_check"] = [sum(b.values()) for b in by_rank]
+    slab_z = nc["output_shape"][0] // len(grid[0]) + ctx_z
+    slab_cases = traced_cases("multi_train_slab", nc, (1, slab_z, *nc["input_shape"][1:], 1))
+    groups += [{"by_conv": b, "cases": slab_cases} for b in by_rank]
+    out["train_step_check"] = {"backend": mesh_backend, "grid": [len(grid), len(grid[0])], **check}
+    if check["loss_rel_diff"] > MULTI_LOSS_RTOL or check["grad_rel_l2"] > MULTI_GRAD_REL_L2:
+        raise AssertionError(f"mesh step against the one-device step: {out['train_step_check']}")
+    train = {"3d_affs": train_line("3d_affs", tsetup, res, secs, MULTI_TRAIN_ITERATIONS, [len(grid), len(grid[0])])}
+    train["3d_affs"]["rank0_seconds"] = both["seconds"]
+    by_rank = res.pop("conv_launches_by_rank")
+    launches["train_3d_affs"] = [sum(b.values()) for b in by_rank]
+    groups += [{"by_conv": b, "cases": slab_cases} for b in by_rank]
+    # its checkpoint predicts
+    ptoml = multi_toml(work, "trained", raw_path, tsetup, MULTI_TRAIN_ITERATIONS)
+    pres = run_prediction(ptoml, device=devices[0], roi_offset=roi[0], roi_shape=roi[1])
+    affs = open_ds(os.path.join(work, "multi.zarr", "multi", "trained", "3d_affs")).to_ndarray()
+    train["3d_affs"]["predicted_tiles"] = pres["vol/multi/trained"]["tiles"]
+    if affs.size == 0:
+        raise AssertionError("the mesh checkpoint predicted nothing")
+
+    # 2d_mtlsd at batch 10 through run_training: (2, 1)
+    tsetup, ttoml, _ = train_config("2d_mtlsd", net_config_2d, MULTI_2D_ITERATIONS, 10)
+    res, _, secs = timed(lambda: run_training(ttoml, device=dev_list, **kw))
+    train["2d_mtlsd"] = train_line("2d_mtlsd", tsetup, res, secs, MULTI_2D_ITERATIONS, [len(devices), 1])
+    by_rank = res.pop("conv_launches_by_rank")
+    launches["train_2d_mtlsd"] = [sum(b.values()) for b in by_rank]
+    spec_in = (10 // len(devices), net_config_2d.get("adj_slices", 1), *net_config_2d["input_shape"], 1)
+    groups += [{"by_conv": b, "cases": traced_cases("multi_train_2d", net_config_2d, spec_in)} for b in by_rank]
+    out["train"] = train
+
+    # one rank over NCCL, the backend of a host with several cards
+    if cuda:
+        import torch.distributed as dist
+
+        ngrid = [[devices[0]]]
+        nccl_backend = L.mesh_backend([devices[0]])
+        mesh = L.init_mesh(ngrid, 0, nccl_backend, f"tcp://localhost:{L.free_port()}")
+        try:
+            m = load_params(Model(nc), params).to(devices[0])
+            state = L.broadcast_state(L.TrainState(0, m, L.make_optimizer(m, 0.5e-4)), mesh)
+            rng = np.random.default_rng(seed + 1)
+            o = nc["output_shape"]
+            b = {
+                "input": torch.tensor(rng.uniform(-1, 1, (1, *nc["input_shape"], 1)), dtype=torch.float32, device="cuda"),
+                "targets": {"3d_affs": torch.tensor(rng.random((1, *o, 9)) > 0.5, dtype=torch.float32, device="cuda")},
+                "weights": {"3d_affs": torch.ones((1, *o, 9), device="cuda")},
+            }
+            step = L.shard_train_step(mesh, m.unet_config, m.dims)
+            losses, ms = [], []
+            reset_launch_counts()
+            for _ in range(MULTI_NCCL_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            nccl_convs = conv3d_kernel_launches()
+        finally:
+            dist.destroy_process_group()
+        out["nccl"] = {"backend": nccl_backend, "steps": MULTI_NCCL_STEPS, "losses": losses, "ms": ms}
+        launches["train_nccl"] = [sum(nccl_convs.values())]
+        groups.append({"by_conv": nccl_convs, "cases": train_conv_cases(nc)})
+        if nccl_backend != "nccl" or not all(np.isfinite(losses)):
+            raise AssertionError(f"NCCL mesh step: {out['nccl']}")
+        del m, state, b
+        torch.cuda.empty_cache()
+    out["backends"] = {"two_ranks_one_card": mesh_backend, "resolved": [str(d) for d in resolve_devices(dev_list)]}
+    out["launches_by_logical_device"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, groups
+
+
 def merge_launches(rows: list, groups, seed: int) -> int:
     """Adds each group's K1 launches to the row of its conv; a conv no row
     holds yet is held against its plain version (``check_conv``, the
@@ -3768,6 +4361,13 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_cli_") as work:
         cli, cli_groups = cli_phase(work, args.seed, net_config, TRAIN_VOLUME, CLI_ITERATIONS)
     emit({"phase": "cli", "nvidia_smi": smi, **cli})
+    # multi-device prediction and mesh training on two logical devices of
+    # this card: each path against its one-device counterpart
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_multi_") as work:
+        multi, multi_groups = multi_phase(
+            work, args.seed, net_config, get_net_config("2d_mtlsd"), TRAIN_VOLUME, MULTI_DEVICES
+        )
+    emit({"phase": "multi", **multi})
     # the stream against the tiled path at its own xy tile, and the share of
     # voxels that differ from the zoo-tiled path, seams included
     vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
@@ -3787,7 +4387,7 @@ def main(argv=None) -> int:
     # the LSD phases' launches, on the rows of their convs (new convs, the
     # refiner's, held against plain here)
     conv_launches += merge_launches(
-        conv_rows, mtlsd_groups + chain_groups + chain2d_groups + synth_groups + cli_groups, args.seed
+        conv_rows, mtlsd_groups + chain_groups + chain2d_groups + synth_groups + cli_groups + multi_groups, args.seed
     )
     # their segments run K2 at the round's (64,512,512) stack, as the
     # command line's round does

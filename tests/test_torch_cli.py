@@ -30,6 +30,7 @@ from click.testing import CliRunner
 
 from bootstrapper_torch.cli import cli as tcli
 from bootstrapper_torch.core import arrays as A
+from bootstrapper_torch.models import Model
 from bootstrapper_torch.models.weights import save_checkpoint
 from bootstrapper_torch.utils import tomlio
 from bootstrapper_torch.workflows import predict as port_workflow
@@ -324,28 +325,125 @@ def test_aliases_resolve_like_jax(alias):
 
 
 REFUSALS = {
-    "sharded_batch": (["predict", "<round>/02_predict.toml", "--sharded"], "A3"),
-    "sharded_spatial": (["predict", "<round>/02_predict.toml", "-s", "spatial"], "A3"),
     "proofread": (["proofread", "<round>", "--out", "x"], "A5"),
     "view": (["view", "<round>"], "A5"),
     "int8": (["predict", "<round>/02_predict.toml"], "A4"),
-    "mesh": (["train", "<round>/01_train_3d_affs.toml", "--mesh"], "mesh"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_refusals_name_their_queue_item(rounds, case, monkeypatch, tmp_path):
+def test_refusals_name_their_queue_item(rounds, case, monkeypatch):
     args, word = REFUSALS[case]
     if case == "int8":
         monkeypatch.setenv("BS_INT8", "1")
     round_dir = str(rounds["port"]["root"] / "round_1")
-    if case == "mesh":  # an override writes a *_modified.toml beside the config
-        round_dir = str(tmp_path)
-        shutil.copy(str(rounds["port"]["root"] / "round_1" / STAGES[0]), round_dir)
     args = ["--device", "cpu"] + [a.replace("<round>", round_dir) for a in args]
     res = CliRunner().invoke(tcli, args)
     assert res.exit_code != 0
     assert word in (res.output + repr(res.exception))
+
+
+def _multi_device_run(rounds, tmp_path, case: str, device: str):
+    """One multi-device command on a copy of the port's round (its setup and
+    checkpoint), on ``device``; returns what it wrote: the affinities, or
+    the trained checkpoint's parameters and the final loss."""
+    src = rounds["port"]["root"] / "round_1"
+    work = tmp_path / device.replace(",", "_")
+    setup = work / "setup"
+    shutil.copytree(str(src / "setups" / "3d_affs"), str(setup))
+    if case == "mesh":
+        cfg = tomlio.load(str(src / STAGES[0]))
+        # a sample one input tile in size: every draw is the same crop, so
+        # that both runs train on the same batch (the loader's threads
+        # deliver draws in no fixed order)
+        nc = json.loads((setup / "net_config.json").read_text())
+        (sample,) = cfg["train"]["samples"]
+        for key, path in list(sample.items()):
+            arr = A.open_ds(path)
+            crop = A.Roi(arr.roi.begin, A.Coordinate(nc["input_shape"]) * arr.voxel_size)
+            out = A.prepare_ds(str(work / "sample.zarr" / key), tuple(nc["input_shape"]), crop.begin,
+                               arr.voxel_size, arr.dtype)
+            out[out.roi] = arr.to_ndarray(crop)
+            sample[key] = out.path
+        cfg["train"].update(setup_dir=str(setup), max_iterations=ITERATIONS + 1, save_snapshots_every=0)
+        tomlio.dump(cfg, str(work / "train.toml"))
+        res = invoke("port", ["--device", device, "train", str(work / "train.toml"), "--mesh"])
+        assert f"'iterations': {ITERATIONS + 1}" in res.output
+        with np.load(str(setup / f"model_checkpoint_{ITERATIONS + 1}")) as data:
+            params = {k: data[k] for k in data.files if k.startswith("params/")}
+        with open(setup / "log" / "loss.jsonl") as f:
+            return params, json.loads(f.read().splitlines()[-1])["loss"]
+    cfg = tomlio.load(str(src / STAGES[1]))
+    for vol in cfg["predict"].values():
+        vol["output_container"] = str(work / "out.zarr")
+        for link in vol["chain"]:
+            link["setup_dir"] = str(setup)
+    tomlio.dump(cfg, str(work / "predict.toml"))
+    args = ["predict", str(work / "predict.toml")]
+    if case == "sharded_batch":
+        args += ["--sharded"]
+    if case == "sharded_spatial":  # one auto tile for the volume, split over the devices
+        args += ["-s", "spatial", "--auto-tile"]
+    invoke("port", ["--device", device, *args])
+    (prefix,) = [link["output_prefix"] for vol in cfg["predict"].values() for link in vol["chain"]]
+    return A.open_ds(str(work / "out.zarr" / prefix / "3d_affs")).to_ndarray()
+
+
+MULTI_DEVICE = ["sharded_batch", "sharded_spatial", "mesh"]
+
+
+@pytest.mark.parametrize("case", MULTI_DEVICE)
+def test_multi_device_commands_run(rounds, case, monkeypatch, tmp_path, request):
+    """``--device cpu,cpu`` with ``predict --sharded``, ``predict -s
+    spatial`` and ``train --mesh`` (two gloo ranks) run through the command
+    line, and give what the one-device command gives: the same affinities
+    (a batch of tiles computes each tile as one device does; a split tile
+    differs from the whole one only within 4 voxels of its seam, as in
+    ``tests/test_torch_spatial_predict.py``), and after one mesh step the
+    same loss within 1e-5 and parameters within atol 5e-4, as in
+    ``tests/test_torch_mesh_train.py`` (fp32 throughout)."""
+    monkeypatch.setattr(port_workflow, "run_prediction",
+                        functools.partial(port_workflow.run_prediction, compute_dtype=torch.float32))
+    # few CPU threads, here and in the spawned ranks: the tests run in
+    # several worker processes at once, whose thread pools oversubscribe
+    # the cores
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
+    import bootstrapper_torch.workflows.train as port_train
+
+    monkeypatch.setattr(port_train, "run_training", functools.partial(port_train.run_training, compute_dtype=torch.float32))
+    if case == "sharded_batch":
+        monkeypatch.setenv("BS_ZSTREAM", "0")  # the batch of tiles, not lockstep streams
+    two, one = (_multi_device_run(rounds, tmp_path, case, dev) for dev in ("cpu,cpu", "cpu"))
+    if case == "mesh":
+        (p2, loss2), (p1, loss1) = two, one
+        assert loss2 == pytest.approx(loss1, abs=1e-5)
+        assert sorted(p2) == sorted(p1)
+        for k in p1:
+            np.testing.assert_allclose(p2[k], p1[k], rtol=0, atol=5e-4)
+        return
+    assert two.shape == one.shape == (3, 24, 96, 96)
+    if case == "sharded_batch":
+        np.testing.assert_array_equal(two, one)
+        return
+    # the volume's one tile splits in two along the axis of least halo:
+    # apart only within 4 voxels of the seam
+    from bootstrapper_torch.predict.scan import auto_shape_increase
+    from bootstrapper_torch.predict.spatial import pick_shard_axis
+
+    nc = json.loads((rounds["port"]["root"] / "round_1/setups/3d_affs/net_config.json").read_text())
+    inc = auto_shape_increase(nc, (24, 96, 96))
+    in_tile = [a + b for a, b in zip(nc["input_shape"], inc)]
+    out_tile = [a + b for a, b in zip(nc["output_shape"], inc)]
+    assert out_tile == [24, 96, 96]
+    axis = pick_shard_axis(out_tile, [(i - o) // 2 for i, o in zip(in_tile, out_tile)], 2,
+                           Model(nc).unet_config, in_tile)
+    band = np.zeros(out_tile[axis], bool)
+    band[out_tile[axis] // 2 - 4 : out_tile[axis] // 2 + 4] = True
+    diff = np.moveaxis(np.abs(two.astype(int) - one.astype(int)), 1 + axis, 0)
+    assert diff[~band].max() == 0 and diff.max() <= 3
 
 
 def test_entry_points_refuse_a_missing_gpu(rounds):
