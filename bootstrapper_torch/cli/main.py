@@ -12,8 +12,7 @@ passes it to every entry point that runs on one; without a GPU and without
 takes a comma list (``cuda:0,cuda:1``, or ``cpu,cpu`` and ``cuda:0,cuda:0``
 for two logical devices on one CPU or card): ``predict --sharded`` and
 ``train --mesh`` spread over its entries (``cuda`` alone: every visible
-card), the other commands run on its first.  What is not ported refuses by
-name: ``proofread`` and ``view`` (ROADMAP Queue A5).
+card), the other commands run on its first (``proofread``: where SAM runs).
 
 ``main(argv)`` runs one command in this interpreter and returns its exit
 code.
@@ -588,29 +587,96 @@ def run(config_files):
             )
 
 
-_NOT_PORTED = dict(
-    context_settings={"ignore_unknown_options": True, "allow_extra_args": True},
-    add_help_option=False,
-)
+@cli.command()
+@click.argument("raw_path")
+@click.option("--affs", "-a", default=None,
+              help="affinity predictions dataset (prompt growing)")
+@click.option("--sam-checkpoint", default=None,
+              help="official sam_vit_*.pth weights; enables real SAM "
+              "mask-from-point (default: $BS_SAM_CHECKPOINT)")
+@click.option("--out", "-o", default=None,
+              help="output container for written labels+mask")
+@click.option("--script", type=click.File("r"), default=None,
+              help="read commands from a file instead of stdin")
+def proofread(raw_path, affs, sam_checkpoint, out, script):
+    """Point-prompted proofreading session (reference
+    ``ng_interactive_sam.py`` capability, terminal-native); SAM runs on
+    ``--device``.
 
+    Commands, one per line (world-unit coordinates):
 
-@cli.command(**_NOT_PORTED)
-def proofread():
-    """Point-prompted proofreading session: not ported yet (ROADMAP
-    Queue A5)."""
-    raise click.UsageError(
-        "proofread: SAM and the proofreading session are not ported to "
-        "bootstrapper_torch yet (ROADMAP Queue A5)"
+    \b
+      point Z Y X     grow a segment from a point prompt
+      merge ID ID..   merge segments into the first id
+      unmerge ID      split a segment into connected components
+      omit ID         exclude a segment from the output mask
+      delete ID       erase a segment
+      filter MIN      drop segments smaller than MIN voxels
+      write [PATH]    write labels + mask Zarrs
+      quit
+    """
+    import sys as _sys
+
+    from ..core.arrays import open_ds
+    from ..proofread import ProofreadSession
+
+    session = ProofreadSession(
+        open_ds(raw_path),
+        affs=open_ds(affs) if affs else None,
+        sam_checkpoint=sam_checkpoint,
+        device=_device(),
     )
-
-
-@cli.command(**_NOT_PORTED)
-def view():
-    """Inspect Zarr datasets: not ported yet (ROADMAP Queue A5)."""
-    raise click.UsageError(
-        "view: the viewer is not ported to bootstrapper_torch yet "
-        "(ROADMAP Queue A5)"
+    cli_echo(
+        f"session over {raw_path}"
+        + (" (SAM)" if session._sam is not None else " (affinity prompting)"),
+        "proofread",
     )
+    stream = script or _sys.stdin
+    for line in stream:
+        parts = line.split()
+        if not parts:
+            continue
+        cmd, args = parts[0].lower(), parts[1:]
+        try:
+            if cmd in ("quit", "exit", "q"):
+                break
+            elif cmd == "point":
+                sid = session.segment_from_point(tuple(float(v) for v in args[:3]))
+                cli_echo(f"segment {sid}", "proofread")
+            elif cmd == "merge":
+                kept = session.merge([int(a) for a in args])
+                cli_echo(f"merged into {kept}", "proofread")
+            elif cmd == "unmerge":
+                new = session.unmerge(int(args[0]))
+                cli_echo(f"split into {new}", "proofread")
+            elif cmd == "omit":
+                session.omit(int(args[0]))
+            elif cmd == "delete":
+                session.delete(int(args[0]))
+            elif cmd == "filter":
+                n = session.filter_small(int(args[0]))
+                cli_echo(f"removed {n} small segments", "proofread")
+            elif cmd == "write":
+                dest = args[0] if args else out
+                if not dest:
+                    raise click.UsageError("write needs a PATH (or --out)")
+                written = session.write(dest)
+                cli_echo(f"wrote {written}", "proofread")
+            else:
+                cli_echo(f"unknown command: {cmd}", "proofread")
+        except (ValueError, IndexError) as e:
+            cli_echo(f"bad command {line.strip()!r}: {e}", "proofread")
+
+
+@cli.command()
+@click.argument("paths", nargs=-1)
+@click.option("--snapshot", "-s", is_flag=True, help="view a snapshot zarr")
+def view(paths, snapshot):
+    """Inspect Zarr datasets (neuroglancer when available, else a text
+    summary of shapes/dtypes/ROIs)."""
+    from .viewer import view_datasets
+
+    view_datasets(paths, snapshot=snapshot)
 
 
 # utils subgroup + doctor live in their own modules

@@ -25,7 +25,11 @@ linear resize.
 Every conv goes through ``ops.conv3d.conv3d``, which routes it by shape to
 the hand-written Hopper kernel or to ``torch.nn.functional.conv3d``; with
 grad enabled the kernel route is ``ops.conv3d.Conv3dFunction``, so the net
-trains with fp32 parameters and convs in the model's ``compute_dtype``.  The
+trains with fp32 parameters and convs in the model's ``compute_dtype``.
+Under ``BS_INT8=1`` with grad disabled every conv, of every shape, goes
+through ``ops.quant.qconv`` instead, each part of a channel concat
+quantized on its own and a residual's input scaled before its crop, as
+the JAX package's graph quantizes them.  The
 TPU fold, lazy-decode and z-slab machinery of the JAX package is layout
 work that computes nothing new and is not ported.
 """
@@ -39,6 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import quant
 from ..ops.conv3d import conv3d, pack_weights, to_channels_last
 
 
@@ -137,7 +142,9 @@ class Conv(nn.Module):
         (``load_state_dict``, an optimizer step) or a move (``.to``) drops
         what was packed.  An update must bump ``w._version``: fused Adam
         does not, so the port's trainer does not use it
-        (``train/loop.py:create_train_state``)."""
+        (``train/loop.py:create_train_state``).  ``dtype`` ``torch.int8``
+        gives ``quant.pack_qweights`` of the slice: its int8 weights, scales
+        and kernel layout."""
         w = self.w
         of = self._packed_of  # (the tensor packed from, its version then)
         if (
@@ -152,22 +159,35 @@ class Conv(nn.Module):
             self._packed, self._packed_of = {}, (w.detach(), w._version)
         key = (dtype, lo, hi)
         if key not in self._packed:
-            self._packed[key] = pack_weights(w.detach()[..., lo:hi, :], dtype)
+            part = w.detach()[..., lo:hi, :]
+            self._packed[key] = quant.pack_qweights(part) if dtype == torch.int8 else pack_weights(part, dtype)
         return self._packed[key]
 
 
-def conv_split(xs, conv: Conv, relu: bool = False):
+def conv_split(xs, conv: Conv, relu: bool = False, scale_of=None):
     """Conv over the implicit channel concat of ``xs``: the sum of per-part
-    convs with channel-split weights (the bias enters with the first)."""
+    convs with channel-split weights (the bias enters with the first).
+    Under int8 (``quant.int8_active``) each part is quantized on its own, as
+    the JAX package's ``_conv_split`` does, with its scale taken over the
+    matching tensor of ``scale_of`` where given (a residual's uncropped
+    inputs)."""
+    q8 = quant.int8_active()
     off = 0
     y = None
-    for x in xs:
+    for i, x in enumerate(xs):
         c = x.shape[-1]
         w = conv.w if len(xs) == 1 else conv.w[..., off : off + c, :]
-        part = conv3d(
-            x, w, conv.b if y is None else None, relu=relu and len(xs) == 1,
-            pack=lambda x=x, lo=off, hi=off + c: conv.packed(x.dtype, lo, hi),
-        )
+        b = conv.b if y is None else None
+        if q8:
+            part = quant.qconv(
+                x, w, b, relu=relu and len(xs) == 1, qw=conv.packed(torch.int8, off, off + c),
+                scale_of=None if scale_of is None else scale_of[i],
+            )
+        else:
+            part = conv3d(
+                x, w, b, relu=relu and len(xs) == 1,
+                pack=lambda x=x, lo=off, hi=off + c: conv.packed(x.dtype, lo, hi),
+            )
         # in place: the first part's output keeps its 16-byte voxel lines
         y = part if y is None else y.add_(part)
         off += c
@@ -199,9 +219,10 @@ class ConvPass(nn.Module):
             out = conv_split(xs if i == 0 else [out], layer, relu=fuse)
             if between and not fuse:
                 out = act(out)
-        # the 1x1 residual commutes with the centre crop: crop first
+        # the 1x1 residual commutes with the centre crop: crop first (under
+        # int8 each part's scale still comes from its uncropped input)
         target = out.shape[1:-1]
-        res = conv_split([center_crop(x, target) for x in xs], self.residual)
+        res = conv_split([center_crop(x, target) for x in xs], self.residual, scale_of=xs)
         return act(out.add_(res))
 
 

@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-SOURCES = ("conv3d", "seed_maxima")
+SOURCES = ("conv3d", "qconv3d", "seed_maxima")
 
 #: compiler output of each build made by this process, by source name
 LOGS: dict = {}

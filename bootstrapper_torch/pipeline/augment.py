@@ -104,17 +104,25 @@ def _keys_cubic(x):
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def cubic_resize_matrix(m: int, n: int, device=None):
-    """``(m, n)`` fp32 weights of ``jax.image.resize(..., "cubic")`` along one
-    axis from ``m`` to ``n`` samples (``jax.image.scale_and_translate``):
-    half-pixel centres, Keys' kernel, the taps that fall outside dropped
-    and the rest renormalised; antialiasing only scales the kernel when
-    downsampling."""
+def _triangle(x):
+    """The linear kernel ``max(0, 1 - x)``, as ``jax.image`` evaluates it."""
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+_RESIZE_KERNELS = {"cubic": _keys_cubic, "linear": _triangle}
+
+
+def resize_matrix(m: int, n: int, method: str, device=None):
+    """``(m, n)`` fp32 weights of ``jax.image.resize(..., method)`` along one
+    axis from ``m`` to ``n`` samples (``jax.image.scale_and_translate``,
+    ``method`` "cubic" or "linear"): half-pixel centres, the kernel scaled
+    by the step when downsampling (antialiasing), the taps that fall
+    outside dropped and the rest renormalised."""
     inv_scale = 1.0 / (n / m)
     kernel_scale = max(inv_scale, 1.0)
     sample = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.0 - 0.5
     x = (sample[None, :] - torch.arange(m, dtype=torch.float32, device=device)[:, None]).abs() / kernel_scale
-    w = _keys_cubic(x)
+    w = _RESIZE_KERNELS[method](x)
     total = w.sum(0, keepdim=True)
     eps = float(np.finfo(np.float32).eps)
     w = torch.where(total.abs() > 1000.0 * eps, w / torch.where(total != 0, total, 1.0), 0.0)
@@ -122,12 +130,12 @@ def cubic_resize_matrix(m: int, n: int, device=None):
     return torch.where(inside[None, :], w, 0.0)
 
 
-def cubic_resize(x, shape):
-    """``jax.image.resize(x, shape, "cubic")`` for fp32 ``x``: the weight
+def resize(x, shape, method: str):
+    """``jax.image.resize(x, shape, method)`` for fp32 ``x``: the weight
     matrix of each axis that changes, applied axis by axis."""
     for d, (m, n) in enumerate(zip(x.shape, shape)):
         if m != n:
-            w = cubic_resize_matrix(m, n, x.device)
+            w = resize_matrix(m, n, method, x.device)
             x = torch.movedim(torch.movedim(x, d, -1) @ w, -1, d)
     return x
 
@@ -160,7 +168,7 @@ def apply_flow(shape, jitter_sigma, noise, angle, scale):
     dims = len(shape)
     device = noise.device
     sigma = host_to(list(jitter_sigma), device).reshape((dims,) + (1,) * dims)
-    flow = cubic_resize(noise * sigma, (dims, *shape))
+    flow = resize(noise * sigma, (dims, *shape), "cubic")
     grids = _grids(shape, device)
     cy = (shape[-2] - 1) / 2.0
     cx = (shape[-1] - 1) / 2.0

@@ -45,6 +45,7 @@ from ..core.arrays import open_ds, prepare_ds
 from ..models.model import Model, unet_config
 from ..models.zoo import get_net_config
 from ..ops import conv3d_kernel_launches
+from ..ops.quant import int8_enabled
 from ..pipeline.synthetic import SyntheticTrainingPipeline
 from ..pipeline.training import SetupSpec, TrainingPipeline
 from ..train.loop import (
@@ -126,9 +127,17 @@ def run_training(config_file: str, device=None, compute_dtype=torch.bfloat16, **
     list in which an entry may repeat), the step is sharded over a
     ``(data, space)`` grid (``train/loop.py:make_mesh``), one spawned
     process per device entry; the result is rank 0's."""
-    devices = resolve_devices(device)
-    if os.environ.get("BS_INT8") == "1":
+    if int8_enabled():
+        # int8 convs are inference-only (round and clip have zero gradient):
+        # off for the whole run, snapshots included, and restored for a
+        # prediction that follows in this process, as the JAX package does
         logger.warning("BS_INT8=1 ignored during training (inference-only)")
+        os.environ["BS_INT8"] = "0"
+        try:
+            return run_training(config_file, device, compute_dtype, **overrides)
+        finally:
+            os.environ["BS_INT8"] = "1"
+    devices = resolve_devices(device)
     cfg = setup_train(config_file, **overrides)
     _check_ported(cfg)
     if cfg.get("mesh", False) and len(devices) > 1:

@@ -5,10 +5,10 @@
 
 Phases, each printing one JSON line:
 
-(a) doctor: torch/CUDA versions, the device, nvcc; the kernels are built
-    from ``bootstrapper_torch/csrc`` (one nvcc per source, in parallel),
-    and each conv kernel instantiation reports its registers, shared
-    memory and spill bytes;
+(a) doctor: torch/CUDA versions, the device, nvcc; meanwhile the kernels
+    are built from ``bootstrapper_torch/csrc`` (one nvcc per source, in
+    parallel) and the host library with g++, and each conv kernel
+    instantiation reports its registers, shared memory and spill bytes;
 (b) every kernel against its plain PyTorch version on the card, at the
     shapes the main path gives it: the conv kernel (K1) at all eleven
     U-Net shapes of one tile in bf16 (the wgmma kernel) and at one shape
@@ -16,7 +16,8 @@ Phases, each printing one JSON line:
     case) bit-exact, also on a CREMI-sized stack and with a window of 33
     (the kernel's general body), with the copy width and body each launch
     took.  Each with its device time (the conv kernel's from CUDA events
-    around launches queued behind a device sleep, the seed kernel's from
+    around 2-10 launches, about KERNEL_TIMING_MS of them, queued behind a
+    device sleep, the seed kernel's from
     profiler device events), the plain version's, the library call's
     where one exists, and the least time the card could take;
 (c) the main path through the user entry points: a synthetic uint8 raw
@@ -178,6 +179,32 @@ Phases, each printing one JSON line:
     process.  K1's launches per logical device (the training ranks report
     theirs); every new K1 shape is held against the plain version and
     counted into the ``kernels`` line.
+(q) int8 inference (``int8``), after ``multi``: the int8 conv kernel (K4:
+    amax, quantization, ``mma.sync`` s8 conv) against its plain version
+    (exact int32 sums in float64) at every conv of a tile under
+    ``BS_INT8=1`` (traced on the ``meta`` device: the 1-, 12-, 60-, 300- and
+    1500-channel levels, the concat parts, the residuals with their scales
+    over the uncropped inputs, the heads) and at a 2D (1,3,3) shape, each
+    within one bf16 ulp, timed beside the bf16 route at the same shape;
+    then ``run_prediction`` under ``BS_INT8=1`` on
+    the main path's tiled volume and on the streamed one, launch counts
+    zeroed before and read after (every conv of every tile or step on K4,
+    once per tile or step at each traced shape, none on K1 or the
+    library; the stream's warm and steady steps traced under the flag at
+    its plan and K4 held against its plain version at their convs too),
+    the uint8 affinities held to the bf16 ones within INT8_MAX_MEAN and
+    INT8_MAX_DIFF;
+(p) SAM and proofreading (``proofread``): ``bs-torch proofread --script``
+    over a PROOFREAD_VOLUME raw volume with a random vit_b checkpoint
+    written under the official keys (its mask head set so that masks
+    follow the section), and again on affinities alone (point, merge,
+    unmerge, omit, filter, write; no command refused, the Zarrs read back
+    with a segment in them); a session of the first prompt alone, its
+    segment held against SAM on the CPU from the same weights (fp32, TF32
+    off); SAM on the card against the CPU (vit_b width, a windowed and a
+    global block, fp32, TF32 off); vit_b's ``set_image`` and ``predict``
+    and the vit_l and vit_h encoders timed with peak memory; ``bs-torch
+    view`` of a written container.
 
 Then the card's name and power limit as nvidia-smi reports them, the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -189,6 +216,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+from concurrent.futures import ThreadPoolExecutor
 import json
 import math
 import os
@@ -204,6 +232,12 @@ import numpy as np
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+
+# a kernel check's timing: about KERNEL_TIMING_MS of calls (``timing_iters``),
+# queued behind KERNEL_SLEEP_MS of device sleep (a kernel's call enqueues in
+# well under a millisecond; a forward's many ops keep cuda_time_ms's 50)
+KERNEL_TIMING_MS = 100
+KERNEL_SLEEP_MS = 10
 
 # The JAX reference package, named for the "replaces" keys only (nothing
 # of it is imported; the name is assembled so a grep for imports of it
@@ -233,9 +267,13 @@ GRAD_REL_L2 = 0.05
 
 # the training slice: the synthetic sample, the iterations of the two
 # run_training calls (the second resumes), the overfit steps, the timed
-# steps, and the predicted ROI (voxel offset, shape)
+# steps, and the predicted ROI (voxel offset, shape).  The training
+# phases run at these depths (halved since the int8 and proofread phases
+# came in; the loops they drive are the same) so that `done` stays under
+# 1000 s: TRAIN_ITERATIONS, ROUND_ITERATIONS[0], MTLSD_ITERATIONS,
+# CHAIN2D_ITERATIONS, CLI_ITERATIONS and MULTI_TRAIN_ITERATIONS
 TRAIN_VOLUME = (64, 512, 512)
-TRAIN_ITERATIONS = (60, 80)
+TRAIN_ITERATIONS = (30, 40)
 OVERFIT_STEPS = 200
 TIMED_STEPS = 10
 TRAIN_PREDICT_ROI = ((16, 96, 96), (16, 320, 320))
@@ -247,7 +285,7 @@ TRAIN_PREDICT_ROI = ((16, 96, 96), (16, 320, 320))
 # width); the card's error map against the CPU route's, and the distance
 # from a threshold within which the two may put a voxel on either side (a
 # tie)
-ROUND_ITERATIONS = (80, 10)
+ROUND_ITERATIONS = (40, 10)
 ERR_ATOL = 1e-6
 
 
@@ -266,13 +304,13 @@ LSD_ATOL = 1e-4
 LSD_ERR_ATOL = 1e-5
 SANITY_CROP = (16, 256, 256)
 SANITY_MAX_MASKED = 0.01
-MTLSD_ITERATIONS = 40
+MTLSD_ITERATIONS = 20
 CHAIN_ITERATIONS = 20
 
 # the 2D chain (``chain2d``): 2d_mtlsd's iterations (batches of 10), and the
 # batches of sections its link's throughput is measured at (the JAX
 # package's default, 32, was its knee on a TPU)
-CHAIN2D_ITERATIONS = 20
+CHAIN2D_ITERATIONS = 10
 BATCH_TILES_SWEEP = (32, 8, 64)
 
 
@@ -329,17 +367,35 @@ SEAM_BAND = 8
 TILED_INPUT = (32, 412, 412)
 # the command line's round: iterations, and the shape increases (beside
 # the zoo's and the auto tile's) of the tile memory sweep
-CLI_ITERATIONS = 20
+CLI_ITERATIONS = 10
 CLI_SWEEP_INCREASES = [[28, 312, 312]]
 
 
 # the multi phase: two logical devices on one card; the sharded batch's ROI
 # (the sample's first 8 sections);
 # its deep volume of one xy column; mesh training's iterations; its gates
+# int8 inference (``int8``): the int8 predictions against the bf16 ones of
+# the same weights, uint8 mean and max absolute difference
+# (tests/test_quant.py:199-200's bounds); the 2D shape of the kernel check
+INT8_MAX_MEAN = 1.5
+INT8_MAX_DIFF = 12
+INT8_2D_CASE = ("2d_300to300_k133", (32, 1, 60, 60, 300), None, (32, 1, 60, 60, 300), (1, 3, 3, 300, 300), True,
+                False)
+
+# H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+PEAK_INT8 = 1979e12
+# proofreading (``proofread``): the raw volume, SAM's card-vs-CPU check at
+# vit_b width with the encoder cut to one windowed and one global block
+# (fp32, TF32 off: the two devices sum the same products in other orders,
+# so each output within this share of its largest magnitude), and the
+# variants whose encoder is timed
+PROOFREAD_VOLUME = (4, 1024, 1024)
+SAM_RTOL = 1e-4
+SAM_TIMED = ("vit_l", "vit_h")
 MULTI_DEVICES = ["cuda:0", "cuda:0"]
 MULTI_ROI_SECTIONS = 8
 MULTI_ZSTREAM_SHAPE = (130, 640, 640)
-MULTI_TRAIN_ITERATIONS = 10
+MULTI_TRAIN_ITERATIONS = 5
 MULTI_2D_ITERATIONS = 3
 MULTI_NCCL_STEPS = 2
 MULTI_MAX_DIFF = 1
@@ -355,7 +411,14 @@ MULTI_LOSS_RTOL = 1e-2
 MULTI_GRAD_REL_L2 = 0.05
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``t``)."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -367,11 +430,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 10, queued: bool = False) -> float:
+def cuda_time_ms(fn, iters: int = 10, queued: bool = False, sleep_ms: float = 50.0) -> float:
     """Mean time of ``fn`` over ``iters`` calls between two CUDA events,
     after one warm-up call.  ``queued``: the calls are queued behind a
-    50 ms device sleep, so the events bracket the device's work alone and
-    not the host's time to enqueue it (for kernels shorter than the call)."""
+    ``sleep_ms`` device sleep, so the events bracket the device's work
+    alone and not the host's time to enqueue it (for kernels shorter than
+    the call)."""
     import torch
 
     fn()
@@ -380,13 +444,36 @@ def cuda_time_ms(fn, iters: int = 10, queued: bool = False) -> float:
     end = torch.cuda.Event(enable_timing=True)
     if queued:
         rate = torch.cuda.get_device_properties(0).clock_rate  # kHz
-        torch.cuda._sleep(int(50 * rate))
+        torch.cuda._sleep(int(sleep_ms * rate))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timing_iters(ms: float, most: int = 10) -> int:
+    """The calls a kernel check times a kernel over, from the ``ms`` of one
+    call: about KERNEL_TIMING_MS of them, at least 2 and at most ``most``."""
+    return max(2, min(most, int(KERNEL_TIMING_MS // max(ms, 1e-3))))
+
+
+def timed_call(fn) -> tuple:
+    """``(fn(), ms)``: one call between two CUDA events on the current
+    stream, after the work queued before it.  The plain versions are timed
+    so, on the call whose result checks the kernel: they run for seconds
+    at the largest shapes, where a warm-up and a mean over calls would
+    cost the script tens of seconds and change nothing of consequence."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_time_ms(fn, iters: int = 10, required: bool = True):
@@ -449,6 +536,18 @@ def conv_cases():
     ]
 
 
+def storage_shape(x) -> tuple:
+    """The NDHWC shape of the tensor whose storage the view ``x`` shows
+    (its ``_base``, or ``x``), with ``x``'s channels.  The base is shaped
+    NDHWC, or NCDHW where an op on the ``meta`` device gave a permuted
+    view (its spatial dims then do not hold ``x``'s)."""
+    base = x if x._base is None else x._base
+    s = tuple(base.shape)
+    if not all(b >= v for b, v in zip(s[1:4], x.shape[1:4])):
+        s = (s[0], *s[2:], s[1])
+    return (*s[:-1], x.shape[-1])
+
+
 def trace_kernel_convs(run) -> tuple:
     """``run()`` (a forward on the ``meta`` device) with the U-Net's conv
     call wrapped: returns ``(run's result, cases)``, every conv the kernel
@@ -462,8 +561,7 @@ def trace_kernel_convs(run) -> tuple:
 
     def record(x, w, b=None, **kw):
         if conv3d_supported(tuple(x.shape), tuple(w.shape)):
-            base = x if x._base is None else x._base
-            xs = (*base.shape[:-1], x.shape[-1])
+            xs = storage_shape(x)
             crop = None if tuple(x.shape[1:4]) == tuple(xs[1:4]) else tuple(x.shape[1:4])
             cases.append((xs, crop, tuple(w.shape), b is not None))
         return real(x, w, b, **kw)
@@ -560,9 +658,8 @@ def check_conv(seed: int, cases=None, fp32: bool = True) -> list:
     for name, xs, crop, ws, with_bias in conv_cases() if cases is None else cases:
         x, w, b = conv_inputs(gen, xs, crop, ws, with_bias, torch.bfloat16)
         packed = C.pack_weights(w, x.dtype)  # once, as the U-Net keeps it
-        got = C.conv3d_cuda(x, w, b, packed=packed)
-        ref = C.conv3d_plain(x, w, b)
-        torch.cuda.synchronize()
+        got, first_ms = timed_call(lambda: C.conv3d_cuda(x, w, b, packed=packed))
+        ref, plain_ms = timed_call(lambda: C.conv3d_plain(x, w, b))
         diff = (got.float() - ref.float()).abs()
         err = float(diff.max())
         ok = bool((diff <= CONV_ATOL + CONV_RTOL * ref.float().abs()).all())
@@ -572,12 +669,14 @@ def check_conv(seed: int, cases=None, fp32: bool = True) -> list:
         wp = w.permute(4, 3, 0, 1, 2).contiguous()
         # CUDA events around queued launches (profiler device events read
         # up to half the time of the largest convs, under their bound)
-        ms = cuda_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed), iters=10, queued=True)
+        iters = timing_iters(first_ms)
+        ms = cuda_time_ms(
+            lambda: C.conv3d_cuda(x, w, b, packed=packed), iters=iters, queued=True, sleep_ms=KERNEL_SLEEP_MS
+        )
         # a cross-check of ``ms``; None where the profiler's traces came back
         # without device events, as one now and then does
-        profiler_ms = device_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed), required=False)
-        plain_ms = cuda_time_ms(lambda: C.conv3d_plain(x, w, b), iters=2, queued=True)
-        library_ms = cuda_time_ms(lambda: F.conv3d(xp, wp, b), iters=10, queued=True)
+        profiler_ms = device_time_ms(lambda: C.conv3d_cuda(x, w, b, packed=packed), iters=iters, required=False)
+        library_ms = cuda_time_ms(lambda: F.conv3d(xp, wp, b), iters=iters, queued=True, sleep_ms=KERNEL_SLEEP_MS)
         flops, nbytes = conv_work(x, w, b, got)
         bound_ms, bound_by = bound(flops, PEAK_BF16, nbytes)
         plan = C.tile_plan(ws[3], ws[4])
@@ -804,17 +903,18 @@ def write_inputs(work: str, net_config: dict, params, raw_shape, seed: int) -> d
 
 
 def run_main_path(
-    work: str, net_config: dict, params, raw_shape, seed: int, device, zstream: bool = False
+    work: str, net_config: dict, params, raw_shape, seed: int, device, zstream: bool = False,
+    segment: bool = True,
 ) -> dict:
-    """``run_prediction`` then ``run_segmentation`` with the launch counts
-    zeroed just before each and read just after.  ``zstream`` False runs
+    """``run_prediction`` then (``segment``) ``run_segmentation`` with the
+    launch counts zeroed just before each and read just after.  ``zstream`` False runs
     the tiled path (``BS_ZSTREAM=0``, as a user opts out); True leaves the
     workflow its default, which must then stream.  On the card, the
     device's busy time over ``run_prediction`` comes from ``torch.profiler``
     device events (``profiled``)."""
     from bootstrapper_torch.core.arrays import open_ds
     from bootstrapper_torch.ops import (
-        conv3d_kernel_launches, launch_counts, reset_launch_counts,
+        conv3d_kernel_launches, launch_counts, qconv_kernel_launches, reset_launch_counts,
     )
     from bootstrapper_torch.workflows import run_prediction, run_segmentation
 
@@ -830,6 +930,7 @@ def run_main_path(
         )
         predict_counts = launch_counts()
         conv_launches = conv3d_kernel_launches()
+        qconv_launches = qconv_kernel_launches()
     finally:
         if saved is None:
             os.environ.pop("BS_ZSTREAM", None)
@@ -839,11 +940,13 @@ def run_main_path(
     if ("steps_per_column" in pstats) != zstream:
         raise AssertionError(f"run_prediction took the wrong route: {pstats}")
 
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    segs = run_segmentation(paths["segment_toml"], device=device)
-    seg_seconds = time.perf_counter() - t0
-    segment_counts = launch_counts()
+    segs, seg_seconds, segment_counts = {"vol": {}}, None, None
+    if segment:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        segs = run_segmentation(paths["segment_toml"], device=device)
+        seg_seconds = time.perf_counter() - t0
+        segment_counts = launch_counts()
 
     affs = open_ds(paths["affs"])
     a = affs.to_ndarray()
@@ -875,6 +978,7 @@ def run_main_path(
         "segments_per_threshold": labels,
         "predict_launches": predict_counts,
         "conv_launches": conv_launches,
+        "qconv_launches": qconv_launches,
         "segment_launches": segment_counts,
         "affs": a,
     }
@@ -1123,6 +1227,7 @@ def zstream_phase(net_config: dict, params, raw_shape, seed: int, device="cuda")
             }
             tiled[name] = (pred.output_tile, stats, outs["3d_affs"].to_ndarray(), seams)
     got = res.pop("affs")
+    res["stream_affs"] = got  # the int8 phase's bf16 reference
     for name, (tile, stats, want, seams) in tiled.items():
         diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
         # voxels within SEAM_BAND of a boundary between two tiled xy tiles
@@ -2024,19 +2129,27 @@ def round_phase(seed: int, net_config: dict, shape, iterations, train_shapes=Non
         ev = tomlio.load(nogt)["evaluate"]["vol"]["pred"]
         pred = open_ds(ev["pred_dataset"])
         nbhd, thresholds = ev["params"]["aff_neighborhood"], tuple(ev["thresholds"])
-        out["errors_vs_cpu"] = {
-            os.path.basename(path): check_errors(
-                entry["pred_errors"], open_ds(path), pred, nbhd, thresholds,
-                os.path.join(work, "cpu_errors", os.path.basename(path)),
-            )
-            for path, entry in errors.items()
-        }
         # and on the GT labels (ids past 2^32), whatever round 1 segmented
         gt_ds = open_ds(f"{container}/labels")
-        out["errors_vs_cpu"]["gt_labels"] = check_errors(
+        checks = {
+            os.path.basename(path): (entry["pred_errors"], open_ds(path)) for path, entry in errors.items()
+        }
+        checks["gt_labels"] = (
             compute_aff_errors(gt_ds, pred, nbhd, os.path.join(work, "gt_errors"), thresholds=thresholds, device=device),
-            gt_ds, pred, nbhd, thresholds, os.path.join(work, "cpu_errors", "gt_labels"),
+            gt_ds,
         )
+        # the CPU routes in threads, each into its own container: their block
+        # loops are host work that releases the interpreter lock in the
+        # reads, renumbering, torch ops and writes (one after another they
+        # took 35-40 s of the phase)
+        with ThreadPoolExecutor(len(checks)) as pool:
+            futures = {
+                name: pool.submit(
+                    check_errors, entry, seg, pred, nbhd, thresholds, os.path.join(work, "cpu_errors", name)
+                )
+                for name, (entry, seg) in checks.items()
+            }
+            out["errors_vs_cpu"] = {name: f.result() for name, f in futures.items()}
         if device == "cuda":
             out["errors_by_parts"] = errors_by_parts(
                 lambda: compute_aff_errors(open_ds(best), pred, nbhd, os.path.join(work, "timed_errors"), device=device),
@@ -4144,6 +4257,486 @@ def multi_phase(work: str, seed: int, net_config: dict, net_config_2d: dict, sha
     return out, groups
 
 
+# -- (q) int8 inference ------------------------------------------------------
+
+
+def trace_int8_convs(net_config: dict, input_shape=None, stream=None) -> list:
+    """Every conv that one tile of ``input_shape`` hands to ``quant.qconv``
+    under ``BS_INT8=1``, or (``stream``: ``(step_tile, s_warm)``, as
+    ``trace_stream_convs`` takes them) a z stream's warm step and then its
+    steady step, named ``warm_``/``steady_``; traced on the ``meta``
+    device, in call order: ``(name, base shape, scale shape, x shape,
+    weight shape, bias, relu)``; ``x`` is a centre crop of the tensor its
+    scale is taken over (``scale shape``, None: ``x`` itself), which is a
+    centre crop of a tensor of the base shape."""
+    import torch
+
+    from bootstrapper_torch.models import Model
+    from bootstrapper_torch.models.zstream import z_context
+    from bootstrapper_torch.ops import quant as Q
+
+    real, cases, prefix = Q.qconv, [], [""]
+
+    def record(x, w, b=None, *, relu=False, out_dtype=None, qw=None, scale_of=None):
+        src = x if scale_of is None else scale_of
+        bs = storage_shape(src)
+        ws = tuple(w.shape)
+        n = sum(c[0].startswith(prefix[0]) for c in cases)
+        name = f"{prefix[0]}c{n:02d}_{ws[3]}to{ws[4]}_k{''.join(map(str, ws[:3]))}"
+        cases.append((name, bs, None if scale_of is None else tuple(src.shape), tuple(x.shape), ws, b is not None,
+                      relu))
+        return real(x, w, b, relu=relu, out_dtype=out_dtype, qw=qw, scale_of=scale_of)
+
+    saved = os.environ.get("BS_INT8")
+    os.environ["BS_INT8"] = "1"
+    Q.qconv = record
+    try:
+        with torch.device("meta"):
+            model = Model(net_config).eval()
+        cin = model.unet_config.in_channels
+        with torch.no_grad():
+            if stream is None:
+                model(torch.empty((1, *input_shape, cin), device="meta"))
+            else:
+                step_tile, s_warm = stream
+                warm_z = s_warm + z_context(model.unet_config)
+                prefix[0] = "warm_"
+                _, state = model.forward_stream(torch.empty((1, warm_z, *step_tile[1:], cin), device="meta"), None)
+                prefix[0] = "steady_"
+                model.forward_stream(torch.empty((1, *step_tile, cin), device="meta"), state)
+    finally:
+        Q.qconv = real
+        if saved is None:
+            os.environ.pop("BS_INT8", None)
+        else:
+            os.environ["BS_INT8"] = saved
+    return cases
+
+
+def check_qconv(seed: int, cases) -> list:
+    """K4 (amax, quantization, s8 conv: ``qconv_cuda``) against
+    ``qconv_plain`` on the card at each of ``cases``: bf16 out, each output
+    within one bf16 ulp of the plain version (whose int32 sums are exact);
+    its time (CUDA events around 2-5 queued calls, ``timing_iters``, the
+    activation's quantization included), the plain version's, the bf16 route's at the
+    same shape (K1 where it takes the shape, else the library: the
+    ``library_ms`` of the row, as no PyTorch call computes an s8 conv) and
+    the bound at the int8 peak."""
+    import torch
+
+    from bootstrapper_torch.models.unet import center_crop
+    from bootstrapper_torch.ops import conv3d as C
+    from bootstrapper_torch.ops import quant as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for name, bs, ss, xs, ws, with_bias, relu in cases:
+        base = C.empty_channels_last(bs, torch.bfloat16, "cuda")
+        base.copy_(torch.randn(bs, generator=gen, device="cuda"))
+        outer = base if ss is None else center_crop(base, ss[1:4])
+        x = center_crop(outer, xs[1:4])
+        src = x if ss is None else outer  # the tensor the scale is taken over
+        fan_in = ws[0] * ws[1] * ws[2] * ws[3]
+        w = torch.randn(ws, generator=gen, device="cuda") / fan_in**0.5
+        b = torch.randn(ws[-1], generator=gen, device="cuda").to(torch.bfloat16) if with_bias else None
+        qw = Q.pack_qweights(w)
+        scale_of = None if ss is None else src
+        got, first_ms = timed_call(lambda: Q.qconv_cuda(x, qw, b, relu=relu, scale_of=scale_of))
+        got = got.float()
+        ref, plain_ms = timed_call(lambda: Q.qconv_plain(x, w, b, relu=relu, qw=qw, sx=Q.activation_scale(src)))
+        ref = ref.float()
+        diff = (got - ref).abs()
+        ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))))
+        err = float(diff.max())
+        if not bool((diff <= ulp).all()):
+            raise AssertionError(f"qconv kernel {name}: max |err| {err}, beyond one bf16 ulp of the plain version")
+        iters, sleep = timing_iters(first_ms, most=5), KERNEL_SLEEP_MS
+        ms = cuda_time_ms(
+            lambda: Q.qconv_cuda(x, qw, b, relu=relu, scale_of=scale_of), iters=iters, queued=True, sleep_ms=sleep
+        )
+        wb = w.to(torch.bfloat16)
+        if C.conv3d_supported(tuple(x.shape), ws):
+            packed = C.pack_weights(wb, torch.bfloat16)
+            bf16_route = "conv3d (K1)"
+            bf16_ms = cuda_time_ms(
+                lambda: C.conv3d_cuda(x, wb, b, relu=relu, packed=packed), iters=iters, queued=True, sleep_ms=sleep
+            )
+        else:
+            bf16_route = "library (F.conv3d, the port's bf16 route for Ci < 128)"
+            bf16_ms = cuda_time_ms(lambda: C.conv3d_library(x, wb, b, relu=relu), iters=iters, queued=True, sleep_ms=sleep)
+        out_vox = got.numel() // ws[-1]
+        macs = out_vox * ws[-1] * fan_in
+        nbytes = x.numel() + w.numel() + 2 * got.numel() + (0 if b is None else 4 * b.numel())
+        bound_ms, bound_by = bound(2.0 * macs, PEAK_INT8, float(nbytes))
+        rows.append({
+            "shape": name, "x": list(xs), "scale_over": None if ss is None else list(ss), "w": list(ws),
+            "relu": relu, "max_abs_err": err, "tolerance": "one bf16 ulp of the plain version",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": bf16_ms, "library_ms_of": f"the bf16 route at this shape: {bf16_route}",
+            "tops": 2.0 * macs / ms / 1e9,
+        })
+        emit({"phase": "kernel_check", "kernel": "qconv3d", **rows[-1]})
+        del base, outer, src, x, w, b, qw, got, ref, diff, ulp
+        torch.cuda.empty_cache()
+    return rows
+
+
+def int8_phase(work: str, net_config: dict, params, seed: int, bf16: dict, device="cuda") -> tuple:
+    """``BS_INT8=1`` through the user entry points: K4 held against its
+    plain version at every conv of a tile (traced under the flag) and at a
+    2D (1,3,3) shape; then ``run_prediction`` on the main path's tiled
+    volume and on the streamed one (segmentation reads no flag), with the
+    launch counts zeroed before and read after: every conv of every tile
+    or step on K4, none on K1 or the library, and K4 launched once per
+    tile, or per step, at each traced (x, weight) shape and at no other;
+    the stream's warm and steady steps are traced under the flag at the
+    run's plan and K4 held against its plain version at their convs too;
+    the uint8 affinities against the bf16 ones of the same weights
+    (``bf16``: {"tiled", "stream"}) within INT8_MAX_MEAN and
+    INT8_MAX_DIFF.  Returns ``(line, kernel rows)``: the tile's rows first,
+    then the 2D shape's, then the stream's, each with its launches."""
+    from collections import Counter
+
+    t_phase = time.perf_counter()
+    cuda = torch_cuda(device)
+    cases = trace_int8_convs(net_config, TILED_INPUT)
+    t0 = time.perf_counter()
+    rows = check_qconv(seed, cases + [INT8_2D_CASE]) if cuda else []
+    out = {"check_seconds": time.perf_counter() - t0, "convs_per_tile": len(cases)}
+    if rows:
+        tile_rows = rows[: len(cases)]
+        out["tile_ms"] = {"int8_k4": sum(r["ms"] for r in tile_rows), "bf16": sum(r["library_ms"] for r in tile_rows)}
+        for r in rows:
+            r["launches"] = 0
+    saved = os.environ.get("BS_INT8")
+    os.environ["BS_INT8"] = "1"
+    try:
+        for name, shape, stream in (("tiled", (8, 640, 640), False), ("stream", ZSTREAM_SHAPE, True)):
+            with tempfile.TemporaryDirectory(prefix=f"bs_chip_smoke_int8_{name}_", dir=work) as sub:
+                res = run_main_path(sub, net_config, params, shape, seed, device, zstream=stream, segment=False)
+            counts = res["predict_launches"]
+            steps = res["tiles"]  # a stream's tiles are its steps
+            if (
+                counts["qconv3d.kernel" if cuda else "qconv3d.plain"] != steps * len(cases)
+                or counts["conv3d.kernel"] or counts["conv3d.library"] or counts["conv3d.plain"]
+                or res["conv_launches"]
+            ):
+                raise AssertionError(f"int8 {name}: launches {counts} over {steps} tiles of {len(cases)} convs")
+            if stream:
+                plan = res["plan"]
+                columns, per_column = plan["columns"], plan["steps_per_column"]
+                step_tile = [plan["step_z"], *plan["input_tile"][1:]]
+                traced = trace_int8_convs(net_config, stream=(step_tile, plan["warm_step_z"]))
+                runs = [(c, columns if c[0].startswith("warm_") else columns * (per_column - 1)) for c in traced]
+            else:
+                traced, runs = cases, [(c, steps) for c in cases]
+            want = Counter()
+            for c, n in runs:
+                want[(c[3], c[4])] += n
+            by_conv = dict(res.pop("qconv_launches"))
+            if cuda:
+                if by_conv != dict(want):
+                    raise AssertionError(f"int8 {name}: K4 launches by conv {by_conv}, want {dict(want)}")
+                if stream:
+                    t0 = time.perf_counter()
+                    new = check_qconv(seed, traced)
+                    out["stream_check_seconds"] = time.perf_counter() - t0
+                    rows += new
+                else:
+                    new = rows[: len(cases)]
+                for r, c in zip(new, traced):  # a shape traced twice takes its launches on its first row
+                    r["launches"] = by_conv.pop((c[3], c[4]), 0)
+            a, ref = res.pop("affs"), bf16[name]
+            diff = np.abs(a.astype(np.int16) - ref.astype(np.int16))
+            res.pop("conv_launches")
+            res["vs_bf16"] = {
+                "mean_abs_diff": float(diff.mean()), "max_abs_diff": int(diff.max()),
+                "differing_share": float((diff != 0).mean()),
+                "bounds": {"mean": INT8_MAX_MEAN, "max": INT8_MAX_DIFF},
+            }
+            out[name] = res
+            if not (diff.mean() < INT8_MAX_MEAN and diff.max() <= INT8_MAX_DIFF):
+                raise AssertionError(f"int8 {name} predictions beyond the bounds of the bf16 ones: {res['vs_bf16']}")
+    finally:
+        if saved is None:
+            os.environ.pop("BS_INT8", None)
+        else:
+            os.environ["BS_INT8"] = saved
+    if cuda:
+        out["launches"] = sum(out[n]["predict_launches"]["qconv3d.kernel"] for n in ("tiled", "stream"))
+        if sum(r["launches"] for r in rows) != out["launches"]:
+            raise AssertionError("int8: K4's launches do not add up over its checked shapes")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, rows
+
+
+def torch_cuda(device) -> bool:
+    import torch
+
+    return torch.device(device).type == "cuda"
+
+
+# -- (p) SAM and proofreading ------------------------------------------------
+
+
+def random_sam(cfg, seed: int, device):
+    """A ``Sam`` of ``cfg`` on ``device`` with every parameter and buffer
+    drawn from ``seed`` by a generator on ``device`` (the default init
+    leaves the position tables at zero)."""
+    import torch
+
+    from bootstrapper_torch.models.sam import Sam
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Sam(cfg).to(device)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
+        for b in model.buffers():
+            b.copy_(torch.randn(b.shape, generator=gen, device=device))
+    return model.eval()
+
+
+def session_sam(seed: int):
+    """The proofreading sessions' vit_b: ``random_sam`` on the CPU, its
+    mask head set so that a mask follows the section: the upscaling's
+    norm at unit scale, the upscaling's and the mask MLPs' output biases
+    zero (drawn at 0.02 like the rest, those biases outweigh the image,
+    and a mask is all of a section or none of it)."""
+    import torch
+
+    from bootstrapper_torch.models.sam import PRESETS
+
+    model = random_sam(PRESETS["vit_b"], seed, "cpu")
+    dec = model.mask_decoder
+    with torch.no_grad():
+        dec.output_upscaling[1].weight.fill_(1.0)
+        for t in (dec.output_upscaling[0].bias, dec.output_upscaling[1].bias, dec.output_upscaling[3].bias):
+            t.zero_()
+        for mlp in dec.output_hypernetworks_mlps:
+            mlp.layers[-1].bias.zero_()
+    return model
+
+
+def sam_prompt_on_cpu(model, raw_path: str, point) -> dict:
+    """A session's SAM prompt computed directly: ``SamPredictor`` on the CPU
+    on the prompted section of ``raw_path`` at the world-unit ``point``,
+    the logits of the multimask output of highest IOU (the session's
+    choice)."""
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models.sam import SamPredictor
+
+    raw = open_ds(raw_path)
+    z, y, x = (int((p - o) // v) for p, o, v in zip(point, raw.offset, raw.voxel_size))
+    pred = SamPredictor(model, device="cpu").set_image(raw.to_ndarray()[z])
+    logits, iou = pred.predict([[x, y]], [1], return_logits=True)
+    best = 1 + int(np.argmax(iou[1:]))
+    return {"z": z, "logits": logits[best], "token": best}
+
+
+def write_proofread_volume(work: str, shape, seed: int, device) -> dict:
+    """A raw volume (blocks of 128 voxels a side at several grey levels,
+    dark seams between them, noise) and its uint8 affinities."""
+    import torch
+
+    from bootstrapper_torch.core.arrays import prepare_ds
+    from bootstrapper_torch.ops.affinities import seg_to_affs
+
+    rng = np.random.default_rng(seed)
+    z, y, x = shape
+    ids = (np.arange(y)[:, None] // 128) * (x // 128 + 1) + np.arange(x)[None, :] // 128 + 1
+    labels = np.broadcast_to(ids, shape).copy()
+    raw = rng.integers(60, 200, labels.max() + 1).astype(np.float32)[labels]
+    raw[:, (np.arange(y) % 128) < 2] = 10
+    raw[:, :, (np.arange(x) % 128) < 2] = 10
+    raw = np.clip(raw + rng.normal(0, 5, shape), 0, 255).astype(np.uint8)
+    vs = (40, 4, 4)
+    rds = prepare_ds(os.path.join(work, "pr.zarr", "raw"), shape, (0, 0, 0), vs, np.uint8)
+    rds[rds.roi] = raw
+    nbh = [[-1, 0, 0], [0, -1, 0], [0, 0, -1]]
+    seg = torch.from_numpy(labels.astype(np.int64)).to(device)
+    seg[:, (torch.arange(y, device=device) % 128) < 2] = 0
+    seg[:, :, (torch.arange(x, device=device) % 128) < 2] = 0
+    affs = (seg_to_affs(seg, nbh, torch.uint8) * 255).cpu().numpy()
+    ads = prepare_ds(os.path.join(work, "pr.zarr", "affs"), affs.shape, (0, 0, 0), vs, np.uint8)
+    ads[ads.roi] = affs
+    return {"raw": rds.path, "affs": ads.path, "voxel_size": vs}
+
+
+def run_cli(argv) -> tuple:
+    """``bs-torch <argv>`` in this process: ``(exit code, its output)``."""
+    import io
+
+    from bootstrapper_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
+def sam_card_vs_cpu(seed: int) -> dict:
+    """SAM at vit_b width, the encoder cut to a windowed and a global
+    block, on the card and on the CPU from the same weights, in fp32 with
+    TF32 off: embedding, mask logits and IOU each within SAM_RTOL of its
+    largest magnitude."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from bootstrapper_torch.models.sam import PRESETS
+
+    cfg = dataclasses.replace(PRESETS["vit_b"], encoder_depth=2, global_attn_indexes=(1,))
+    card = random_sam(cfg, seed, "cuda")
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(1, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+    pts = np.array([[[300.0, 500.0], [700.0, 200.0]]], np.float32)
+    lab = np.array([[1, 0]])
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = {}
+        for name, m, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+            with torch.no_grad():
+                emb = m.image_encoder(torch.from_numpy(x).to(dev))
+                sparse, dense = m.prompt_encoder(torch.from_numpy(pts).to(dev), torch.from_numpy(lab).to(dev))
+                masks, iou = m.mask_decoder(emb, m.prompt_encoder.dense_pe(64), sparse, dense)
+            outs[name] = {"embedding": emb.cpu(), "mask_logits": masks.cpu(), "iou": iou.cpu()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    errs = {k: float((outs["card"][k] - outs["cpu"][k]).abs().max()) for k in outs["cpu"]}
+    scale = {k: float(outs["cpu"][k].abs().max()) for k in outs["cpu"]}
+    if not all(errs[k] <= SAM_RTOL * scale[k] for k in errs):
+        raise AssertionError(f"SAM on the card against the CPU: max |err| {errs} (scale {scale}, rtol {SAM_RTOL})")
+    return {"config": "vit_b width, blocks (windowed, global)", "max_abs_err": errs, "max_abs": scale,
+            "rtol": SAM_RTOL, "tf32": False}
+
+
+def sam_timings(seed: int) -> dict:
+    """On the card from in-memory random weights: vit_b's ``set_image`` on a
+    1024x1024 section and one ``predict``, and the encoder of SAM_TIMED's
+    variants once each, with peak memory."""
+    import torch
+
+    from bootstrapper_torch.models.sam import PRESETS, SamPredictor
+
+    out = {}
+    img = np.random.default_rng(seed).integers(0, 255, (1024, 1024)).astype(np.uint8)
+    for name in ("vit_b",) + SAM_TIMED:
+        model = random_sam(PRESETS[name], seed, "cuda")
+        pred = SamPredictor(model, device="cuda")
+        pred.set_image(img)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pred.set_image(img)
+        torch.cuda.synchronize()
+        row = {"set_image_ms": (time.perf_counter() - t0) * 1e3,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+        if name == "vit_b":
+            pred.predict([[500, 400]], [1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masks, iou = pred.predict([[500, 400]], [1])
+            row["predict_ms"] = (time.perf_counter() - t0) * 1e3
+            if masks.shape != (4, 1024, 1024) or not np.isfinite(iou).all():
+                raise AssertionError(f"SAM predict: masks {masks.shape}, iou {iou}")
+        out[name] = row
+        del model, pred
+        torch.cuda.empty_cache()
+    return out
+
+
+PROOFREAD_SCRIPT = (
+    "point 80 260 300\npoint 80 700 640\nmerge 1 2\nunmerge 1\npoint 120 900 150\nomit 3\nfilter 50\n"
+    "write {out}\nquit\n"
+)
+# the SAM session's first prompt, held against SAM on the CPU
+FIRST_PROMPT = (80, 260, 300)
+
+
+def proofread_phase(work: str, seed: int, device="cuda") -> dict:
+    """``bs-torch proofread --script`` over PROOFREAD_VOLUME, once with a
+    vit_b checkpoint written under the official keys (``session_sam``,
+    ``torch.save``) and once on the affinities alone: point, merge,
+    unmerge, omit, filter, write; no command may be refused, and the
+    written Zarrs must read back with a segment in them.  A session of the
+    first prompt alone (fp32, TF32 off) writes SAM's mask on the card,
+    held against SAM on the CPU from the same weights: equal wherever the
+    CPU's logit is beyond SAM_RTOL of its largest magnitude.  Then SAM on
+    the card against the CPU, SAM's timings, and ``bs-torch view`` on a
+    written container."""
+    from bootstrapper_torch.core.arrays import open_ds
+
+    import torch
+
+    t_phase = time.perf_counter()
+    vol = write_proofread_volume(work, PROOFREAD_VOLUME, seed, device)
+    ckpt = os.path.join(work, "sam_vit_b_random.pth")
+    model = session_sam(seed)
+    torch.save(model.state_dict(), ckpt)
+    out = {"volume": list(PROOFREAD_VOLUME), "checkpoint_mib": os.path.getsize(ckpt) / 2**20}
+    written = {}
+    with ThreadPoolExecutor(1) as pool:  # the CPU's prompt while the card runs the sessions
+        on_cpu = pool.submit(sam_prompt_on_cpu, model, vol["raw"], FIRST_PROMPT)
+        sessions = (
+            ("sam", ["--sam-checkpoint", ckpt], PROOFREAD_SCRIPT),
+            ("affinities", [], PROOFREAD_SCRIPT),
+            ("sam_first_prompt", ["--sam-checkpoint", ckpt], "point {} {} {}\nwrite {{out}}\nquit\n".format(*FIRST_PROMPT)),
+        )
+        for name, extra, script_text in sessions:
+            dest = os.path.join(work, f"proofread_{name}.zarr")
+            script = os.path.join(work, f"{name}.txt")
+            with open(script, "w") as f:
+                f.write(script_text.format(out=dest))
+            t0 = time.perf_counter()
+            with fp32_exact() if name == "sam_first_prompt" else contextlib.nullcontext():
+                rc, text = run_cli(["--device", device, "proofread", vol["raw"], "-a", vol["affs"], "--script", script,
+                                    *extra])
+            labels = written[name] = open_ds(os.path.join(dest, "proofread", "labels")).to_ndarray()
+            mask = open_ds(os.path.join(dest, "proofread", "mask")).to_ndarray()
+            refused = [line for line in text.splitlines() if "bad command" in line or "unknown command" in line]
+            ok = (
+                rc == 0 and not refused and ("(SAM)" in text) == (name != "affinities")
+                and labels.shape == mask.shape == PROOFREAD_VOLUME and labels.dtype == np.uint64
+                and mask.dtype == np.uint8 and (labels > 0).any()
+            )
+            out[name] = {
+                "seconds": time.perf_counter() - t0, "exit_code": rc, "lines": text.strip().splitlines()[-8:],
+                "refused": refused, "segments": int(len(np.unique(labels[labels > 0]))),
+                "labelled_share": float((labels > 0).mean()), "mask_share": float(mask.mean()),
+            }
+            if not ok:
+                raise AssertionError(f"proofread ({name}): {out[name]}")
+        ref = on_cpu.result()
+    del model
+    z, logits, labels = ref["z"], ref["logits"], written["sam_first_prompt"]
+    margin = SAM_RTOL * float(np.abs(logits).max())
+    got = labels[z] == 1
+    differ = got != (logits > 0)
+    out["sam_first_prompt"].update({
+        "section": z, "token": ref["token"], "cpu_mask_share": float((logits > 0).mean()),
+        "differing_pixels": int(differ.sum()), "margin": margin,
+        "differing_beyond_margin": int((differ & (np.abs(logits) > margin)).sum()),
+    })
+    if (
+        out["sam_first_prompt"]["differing_beyond_margin"] or set(np.unique(labels).tolist()) != {0, 1}
+        or (labels[np.arange(labels.shape[0]) != z] != 0).any()
+    ):
+        raise AssertionError(f"proofread: the SAM session's first segment against SAM on the CPU: {out['sam_first_prompt']}")
+    out["sam_card_vs_cpu"] = sam_card_vs_cpu(seed)
+    out["sam_timings"] = sam_timings(seed)
+    rc, text = run_cli(["--device", device, "view", os.path.join(work, "proofread_sam.zarr")])
+    if rc != 0 or "proofread/labels: shape=" not in text:
+        raise AssertionError(f"view: exit {rc}: {text[-500:]}")
+    out["view_lines"] = text.strip().splitlines()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def merge_launches(rows: list, groups, seed: int) -> int:
     """Adds each group's K1 launches to the row of its conv; a conv no row
     holds yet is held against its plain version (``check_conv``, the
@@ -4182,6 +4775,7 @@ def main(argv=None) -> int:
     from bootstrapper_torch.models.zoo import get_net_config
     from bootstrapper_torch.ops import _build, launch_counts
     from bootstrapper_torch.ops import conv3d as conv3d_ops
+    from bootstrapper_torch.ops import quant as quant_ops
     from bootstrapper_torch.predict.zstream import plan_stream
 
     if not torch.cuda.is_available():
@@ -4189,18 +4783,24 @@ def main(argv=None) -> int:
         return 2
 
     t_start = time.perf_counter()
-    smi = nvidia_smi()
-    emit({"phase": "doctor", **doctor(), "nvidia_smi": smi})
+    # the kernels (one nvcc each) and the host watershed/agglomeration
+    # library (g++) build while the doctor starts the card up
     t0 = time.perf_counter()
-    _build.build_all()
-    kernels_s = time.perf_counter() - t0
-    native.get_lib()  # the host watershed/agglomeration library (g++)
+    with ThreadPoolExecutor(2) as pool:
+        built = pool.submit(lambda: (_build.build_all(), time.perf_counter() - t0)[1])
+        host = pool.submit(native.get_lib)
+        smi = nvidia_smi()
+        emit({"phase": "doctor", **doctor(), "nvidia_smi": smi})
+        kernels_s = built.result()
+        host.result()
     instantiations = conv3d_ops.kernel_info()
+    qconv_instantiations = quant_ops.kernel_info()
     emit(
         {
             "phase": "build", "kernels_seconds": kernels_s,
             "seconds": time.perf_counter() - t0, "sources": list(_build.SOURCES),
             "conv3d_instantiations": instantiations,
+            "qconv3d_instantiations": qconv_instantiations,
             "compiler_warnings": [
                 line for log in _build.LOGS.values() for line in log.splitlines()
                 if "warning" in line.lower()
@@ -4208,8 +4808,9 @@ def main(argv=None) -> int:
         }
     )
     spilled = [k for k in instantiations if k["dtype"] == "bf16" and k["local_bytes"]]
+    spilled += [k for k in qconv_instantiations if k["local_bytes"]]
     if spilled:
-        raise AssertionError(f"wgmma kernel spills registers: {spilled}")
+        raise AssertionError(f"a conv kernel spills registers: {spilled}")
 
     conv_rows = check_conv(args.seed)
     seed_rows = check_seeds(args.seed)
@@ -4221,6 +4822,7 @@ def main(argv=None) -> int:
             work, net_config, params, (8, 640, 640), args.seed, "cuda"
         )
     affs = main_path.pop("affs")
+    main_path.pop("qconv_launches")  # int8 is off here: empty
     by_conv = main_path.pop("conv_launches")  # counted where the kernel launches
     for row in conv_rows:
         row["launches"] = by_conv.pop((tuple(row["x"]), tuple(row["w"])), 0)
@@ -4257,6 +4859,8 @@ def main(argv=None) -> int:
     # step's once per column, the steady step's once per later step
     columns, steps = plan["columns"], plan["steps_per_column"]
     by_stream = zs.pop("conv_launches")
+    zs.pop("qconv_launches")
+    stream_affs = zs.pop("stream_affs")
     for row in stream_rows:
         row["launches"] = by_stream.pop((tuple(row["x"]), tuple(row["w"])), 0)
     want = {
@@ -4368,6 +4972,16 @@ def main(argv=None) -> int:
             work, args.seed, net_config, get_net_config("2d_mtlsd"), TRAIN_VOLUME, MULTI_DEVICES
         )
     emit({"phase": "multi", **multi})
+    # int8 inference: K4 at every conv of a tile, then the tiled and the
+    # streamed main path under BS_INT8=1 against their bf16 runs
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_int8_") as work:
+        int8, qconv_rows = int8_phase(work, net_config, params, args.seed, {"tiled": affs, "stream": stream_affs})
+    del stream_affs
+    emit({"phase": "int8", "nvidia_smi": smi, **int8})
+    # SAM and proofreading through the command line, SAM card vs CPU, timings
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_proofread_") as work:
+        proofread = proofread_phase(work, args.seed)
+    emit({"phase": "proofread", "nvidia_smi": smi, **proofread})
     # the stream against the tiled path at its own xy tile, and the share of
     # voxels that differ from the zoo-tiled path, seams included
     vs_tiled, vs_zoo = zs["vs_tiled"], zs["vs_zoo_tiled"]
@@ -4403,6 +5017,7 @@ def main(argv=None) -> int:
     )
     seed_rows += round_seed_rows
     top_conv = max(conv_rows, key=lambda r: r["ms"] * r["launches"])
+    top_qconv = max(qconv_rows[: int8["convs_per_tile"]], key=lambda r: r["ms"])
     top_seed = seed_rows[0]
     kernels = [
         {
@@ -4427,6 +5042,18 @@ def main(argv=None) -> int:
             **{k: top_seed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "at": top_seed["shape"],
             "shapes": seed_rows,
+        },
+        {
+            "name": "qconv3d",
+            "route": "cuda",
+            "source": "bootstrapper_torch/csrc/qconv3d.cu",
+            "replaces": f"{_JAX_PKG}/ops/quant.py:58",
+            "launches": int8["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in qconv_rows),
+            **{k: top_qconv[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ms_of")},
+            "at": top_qconv["shape"],
+            "tile_ms": int8["tile_ms"],
+            "shapes": qconv_rows,
         },
     ]
     print(smi, flush=True)

@@ -1,7 +1,8 @@
 """The port's array layer: Zarr v2 read and written with numpy, raw or
 zstd/zlib/gzip-compressed, in the JAX package's on-disk format (checked by
 opening each side's arrays with the other's ``open_ds``), ``prepare_ds``'s
-modes, and in-memory arrays; and the prediction's ``BS_INT8`` refusal."""
+modes, and in-memory arrays; and the batch-sharded prediction's ``BS_INT8``
+refusal."""
 
 import json
 import os
@@ -129,11 +130,13 @@ def test_prepare_ds_append_keeps_the_array(tmp_path):
 
 
 def test_run_prediction_refuses_int8(tmp_path, monkeypatch):
-    """``BS_INT8=1`` switches the JAX package's convs to int8; the port has
-    no int8 route yet and refuses rather than predict in bf16."""
+    """``BS_INT8=1`` predicts in int8 on every path but the batch-sharded
+    one, whose devices would each take their own activation scales where
+    the JAX package takes one over the whole batch: that one refuses, before
+    it reads the config, rather than predict with other scales."""
     monkeypatch.setenv("BS_INT8", "1")
-    with pytest.raises(ValueError, match="Queue A4"):
-        run_prediction(str(tmp_path / "predict.toml"), device="cpu")
+    with pytest.raises(ValueError, match="Queue C"):
+        run_prediction(str(tmp_path / "predict.toml"), device=["cpu", "cpu"], sharded="batch")
 
 
 @pytest.mark.parametrize("pad_mode", ["reflect", "constant"])

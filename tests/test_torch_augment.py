@@ -60,7 +60,7 @@ def test_cubic_weight_matrix_equals_jax(m, n):
     """Bit for bit the matrix ``jax.image.scale_and_translate`` builds (the
     last case downsamples: antialiased kernel)."""
     want = np.asarray(compute_weight_mat(m, n, n / m, 0.0, _fill_keys_cubic_kernel, True))
-    np.testing.assert_array_equal(A.cubic_resize_matrix(m, n).numpy(), want)
+    np.testing.assert_array_equal(A.resize_matrix(m, n, "cubic").numpy(), want)
 
 
 @pytest.mark.parametrize(
@@ -77,7 +77,7 @@ def test_cubic_resize_matches_jax_image_resize(src, dst):
         if m != n:
             w = np.asarray(compute_weight_mat(m, n, n / m, 0.0, _fill_keys_cubic_kernel, True), np.float64)
             exact = np.moveaxis(np.moveaxis(exact, d, -1) @ w, -1, d)
-    got = A.cubic_resize(_t(x), dst).numpy()
+    got = A.resize(_t(x), dst, "cubic").numpy()
     np.testing.assert_allclose(got, exact, rtol=0, atol=1e-6)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 

@@ -26,6 +26,18 @@ from bootstrapper_tpu.ops.pallas_conv import pallas_conv3d
 BF16, F32 = torch.bfloat16, torch.float32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """This module's torch work on 2 CPU thread(s): the test run uses
+    six worker processes at once, and torch's thread pools in all
+    of them oversubscribe the cores (each op waits on threads that are not
+    scheduled); restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _weights(kernel, ci, co, seed=0):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.standard_normal((*kernel, ci, co)).astype(np.float32))

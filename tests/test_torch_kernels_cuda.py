@@ -14,6 +14,7 @@ from bootstrapper_torch.models import Model, init_params_numpy, load_params
 from bootstrapper_torch.models.unet import center_crop
 from bootstrapper_torch.models.zoo import get_net_config
 from bootstrapper_torch.ops import conv3d as C
+from bootstrapper_torch.ops import quant as Q
 from bootstrapper_torch.ops import seeds as S
 from bootstrapper_torch.predict._pipeline import DeviceIO
 
@@ -107,6 +108,47 @@ def test_conv3d_kernel_matches_plain(cuda, x_shape, w_shape, dtype, crop, relu, 
     np.testing.assert_allclose(
         got.float().cpu().numpy(), ref.float().cpu().numpy(), rtol=tol, atol=tol
     )
+
+
+QCONV_CASES = [
+    # (x shape, w shape, crop, output dtype): the int8 kernel (K4) at the
+    # convs of a 3d_affs tile with their channel counts, at few voxels
+    ((1, 8, 12, 12, 1), (3, 3, 3, 1, 12), None, BF16),  # enc0.c0: pitch 4
+    ((1, 6, 10, 10, 12), (3, 3, 3, 12, 12), None, BF16),  # enc0.c1
+    ((1, 8, 12, 12, 1), (1, 1, 1, 1, 12), (6, 8, 8), BF16),  # enc0.res
+    ((1, 6, 10, 10, 12), (3, 3, 3, 12, 60), None, BF16),  # enc1.c0
+    ((1, 6, 10, 10, 60), (3, 3, 3, 60, 60), None, BF16),  # pitch 64: 16-byte copies
+    ((1, 6, 12, 12, 60), (3, 3, 3, 60, 300), None, BF16),
+    ((1, 5, 9, 9, 300), (3, 3, 3, 300, 300), None, BF16),
+    ((1, 4, 6, 6, 300), (3, 3, 3, 300, 1500), None, BF16),
+    ((1, 4, 6, 6, 1500), (3, 3, 3, 1500, 1500), None, BF16),
+    ((1, 6, 10, 10, 300), (1, 1, 1, 300, 1500), (4, 8, 8), BF16),  # enc3.res
+    ((1, 5, 9, 9, 1500), (3, 3, 3, 1500, 300), None, BF16),  # dec2.c0 up part
+    ((1, 5, 9, 9, 12), (1, 1, 1, 12, 3), None, F32),  # a head, fp32 out
+    ((32, 1, 20, 20, 5), (1, 3, 3, 5, 12), None, BF16),  # a 2D net's first conv
+    ((2, 5, 40, 37, 60), (3, 3, 3, 60, 12), None, F32),  # many ragged M tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("x_shape,w_shape,crop,out_dtype", QCONV_CASES)
+def test_qconv_kernel_matches_plain(cuda, x_shape, w_shape, crop, out_dtype, relu):
+    """K4 (amax, quantization, s8 conv) against ``qconv_plain``, whose sums
+    are exact: the same fp32 rescale, so at most one ulp of the output type
+    apart (a crop takes its scale from the uncropped input)."""
+    x, w, b = _conv_inputs(cuda, x_shape, w_shape, BF16, None, "lines")
+    xc = x if crop is None else center_crop(x, crop)
+    qw = Q.pack_qweights(w.float())
+    before = Q.COUNTS["kernel"]
+    got = Q.qconv(xc, w, b, relu=relu, out_dtype=out_dtype, qw=qw, scale_of=x).float()
+    torch.cuda.synchronize()
+    assert Q.COUNTS["kernel"] == before + 1
+    ref = Q.qconv_plain(xc, w, b, relu=relu, out_dtype=out_dtype, qw=qw, sx=Q.activation_scale(x)).float()
+    ulp = torch.finfo(out_dtype).eps * torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))))
+    assert bool(((got - ref).abs() <= ulp).all()), float((got - ref).abs().max())
+    xq, _ = Q.quantize(xc, Q.activation_scale(x))
+    assert int(xq.abs().max()) <= 127
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from bootstrapper_torch import configs
 from bootstrapper_torch.core.arrays import open_ds, prepare_ds
@@ -55,6 +56,18 @@ TINY_3D_NET = dict(
     kernel_size_up=[[[1, 3, 3], [1, 3, 3]], [[1, 3, 3], [1, 3, 3]]],
 )
 NBHD = [[-1, 0, 0], [0, -1, 0], [0, 0, -1]]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """This module's torch work on 2 CPU thread(s): the test run uses
+    six worker processes at once, and torch's thread pools in all
+    of them oversubscribe the cores (each op waits on threads that are not
+    scheduled); restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _shrink(setup_dir):

@@ -38,6 +38,18 @@ VOXEL = (40, 4, 4)
 RAW_SHAPE = (2, 32, 32)  # 2x2x2 output tiles of (1, 16, 16)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """This module's torch work on 2 CPU thread(s): the test run uses
+    six worker processes at once, and torch's thread pools in all
+    of them oversubscribe the cores (each op waits on threads that are not
+    scheduled); restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _net_config():
     """A narrow 3d_affs (4 -> 24 -> 144 -> 864 channels, so both conv
     routes run) at its smallest tile plus 8 in y and x."""

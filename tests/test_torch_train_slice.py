@@ -29,6 +29,18 @@ from bootstrapper_tpu.train import loop as JL
 
 VOXEL = (40, 4, 4)
 SHAPE = (34, 140, 140)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """This module's torch work on 2 CPU thread(s): the test run uses
+    six worker processes at once, and torch's thread pools in all
+    of them oversubscribe the cores (each op waits on threads that are not
+    scheduled); restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 # the predicted ROI: one z tile and 2 x 2 xy tiles of (6, 16, 16), whose
 # inputs lie inside the volume
 PREDICT_OFFSET, PREDICT_SHAPE = (14, 48, 48), (6, 32, 32)

@@ -33,6 +33,18 @@ from bootstrapper_tpu.workflows import predict as jax_workflow
 VOXEL = (40, 4, 4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """This module's torch work on 2 CPU thread(s): the test run uses
+    six worker processes at once, and torch's thread pools in all
+    of them oversubscribe the cores (each op waits on threads that are not
+    scheduled); restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _net_config(num_fmaps=2, inc=2):
     """``tests/test_zstream_predict.py``'s tiny 3d_affs net (3 heads, z
     context 20, tile (24,48,48) -> (4,8,8)); ``inc`` 6 with 4 fmaps puts
