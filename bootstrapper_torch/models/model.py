@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .unet import ConvPass, UNet, UNetConfig, compute_output_shape
+from ..ops.quant import int8_enabled
+from .unet import Conv, ConvPass, UNet, UNetConfig, compute_output_shape
 from .zoo import get_net_config
 
 
@@ -77,11 +78,41 @@ class Model(nn.Module):
         to ``compute_dtype`` (default: this model's) once, and an empty
         packed-weight cache (``unet.Conv.packed``): one per device of a
         multi-device predictor, so that no replica packs from, or launches
-        on, another device's tensors."""
+        on, another device's tensors.  Under ``BS_INT8=1`` the replica's
+        int8 weights are this model's, quantized from fp32 parameters:
+        packed from them here, or, where this model was cast already, its
+        own int8 weights moved to ``device``."""
         dtype = compute_dtype or self.compute_dtype
         rep = Model(self.net_config, compute_dtype=dtype, stack_infer=self.stack_infer)
         rep.load_state_dict(self.state_dict())
-        return rep.to(device=device, dtype=dtype)
+        if int8_enabled():
+            for mine, theirs in zip(self.convs(), rep.convs()):
+                theirs.prepare_int8(device, mine)
+        return rep._cast(device, dtype)
+
+    def convs(self) -> list:
+        """Every conv of the net and its heads."""
+        return [m for m in self.modules() if isinstance(m, Conv)]
+
+    def to_compute(self, device, dtype) -> "Model":
+        """This model on ``device`` in ``dtype`` (in place, as ``.to``).
+        Under ``BS_INT8=1`` every conv's int8 weights are first quantized
+        from the fp32 parameters on ``device``, one conv at a time, and kept
+        across the cast: the JAX package's ``qconv`` quantizes its fp32
+        parameters, and a cast to bf16 first would round the weights and
+        nearly every per-channel scale."""
+        if int8_enabled():
+            for conv in self.convs():
+                conv.prepare_int8(device)
+        return self._cast(device, dtype)
+
+    def _cast(self, device, dtype) -> "Model":
+        self.compute_dtype = dtype
+        out = self.to(device=device, dtype=dtype)
+        if int8_enabled():
+            for conv in self.convs():
+                conv.keep_int8()
+        return out
 
     @property
     def unet_config(self) -> UNetConfig:

@@ -27,9 +27,13 @@ the hand-written Hopper kernel or to ``torch.nn.functional.conv3d``; with
 grad enabled the kernel route is ``ops.conv3d.Conv3dFunction``, so the net
 trains with fp32 parameters and convs in the model's ``compute_dtype``.
 Under ``BS_INT8=1`` with grad disabled every conv, of every shape, goes
-through ``ops.quant.qconv`` instead, each part of a channel concat
-quantized on its own and a residual's input scaled before its crop, as
-the JAX package's graph quantizes them.  The
+through ``ops.quant`` instead, each part of a channel concat quantized on
+its own, as the JAX package's graph quantizes them; a conv pass quantizes
+each input part once, and its 1x1 residual reads the centre crop of the s8
+tensor its first conv read (the scale of the uncropped input, as the JAX
+package's residual takes it).  The int8 weights come from the fp32
+parameters (``Conv.prepare_int8``), made before a predictor casts the model
+to its compute dtype and kept across the cast.  The
 TPU fold, lazy-decode and z-slab machinery of the JAX package is layout
 work that computes nothing new and is not ported.
 """
@@ -126,14 +130,34 @@ def center_crop(x, target_spatial: Sequence[int]):
 class Conv(nn.Module):
     """One conv's parameters: ``w`` (kd, kh, kw, Ci, Co), ``b`` (Co), in
     the JAX layout; the conv kernel's packed form of ``w`` is kept beside
-    it (``packed``) and is no part of the state dict."""
+    it (``packed``) and is no part of the state dict.  ``parts`` are the
+    input-channel counts of the implicit concat the conv reads (a decoder
+    pass's first conv and residual read two)."""
 
-    def __init__(self, kernel: Sequence[int], in_ch: int, out_ch: int):
+    def __init__(self, kernel: Sequence[int], in_ch: int, out_ch: int, parts: Sequence[int] = ()):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(*kernel, in_ch, out_ch))
         self.b = nn.Parameter(torch.zeros(out_ch))
+        self.parts = tuple(parts) or (in_ch,)
         self._packed = {}
         self._packed_of = None
+        self._qpacked = {}  # (lo, hi) -> int8 weights quantized from fp32
+        self._qpacked_of = None
+
+    def _stamp(self):
+        """What identifies ``w``'s values: the tensor (its storage, dtype,
+        device) and its version."""
+        return (self.w.detach(), self.w._version)
+
+    def _is_current(self, of) -> bool:
+        w = self.w
+        return (
+            of is not None
+            and of[1] == w._version
+            and of[0].data_ptr() == w.data_ptr()
+            and of[0].dtype == w.dtype
+            and of[0].device == w.device
+        )
 
     def packed(self, dtype, lo: int = 0, hi: Optional[int] = None):
         """``pack_weights`` of the input-channel slice ``[lo, hi)`` of
@@ -143,47 +167,83 @@ class Conv(nn.Module):
         what was packed.  An update must bump ``w._version``: fused Adam
         does not, so the port's trainer does not use it
         (``train/loop.py:create_train_state``).  ``dtype`` ``torch.int8``
-        gives ``quant.pack_qweights`` of the slice: its int8 weights, scales
-        and kernel layout."""
-        w = self.w
-        of = self._packed_of  # (the tensor packed from, its version then)
-        if (
-            of is None
-            or of[1] != w._version
-            or of[0].data_ptr() != w.data_ptr()
-            or of[0].dtype != w.dtype
-            or of[0].device != w.device
-        ):
+        gives ``quant.pack_qweights`` of the slice, quantized from fp32
+        values as the JAX package's ``qconv`` quantizes its fp32 parameters:
+        made here from an fp32 ``w``, or kept from ``prepare_int8`` across
+        the cast that followed it; raises for weights in another dtype."""
+        if dtype == torch.int8:
+            return self._packed_int8(lo, self.w.shape[-2] if hi is None else hi)
+        if not self._is_current(self._packed_of):
             # holding the tensor keeps its storage, so that no later
             # parameter can come to lie at the same address unnoticed
-            self._packed, self._packed_of = {}, (w.detach(), w._version)
+            self._packed, self._packed_of = {}, self._stamp()
         key = (dtype, lo, hi)
         if key not in self._packed:
-            part = w.detach()[..., lo:hi, :]
-            self._packed[key] = quant.pack_qweights(part) if dtype == torch.int8 else pack_weights(part, dtype)
+            self._packed[key] = pack_weights(self.w.detach()[..., lo:hi, :], dtype)
         return self._packed[key]
 
+    def _packed_int8(self, lo: int, hi: int):
+        if not self._is_current(self._qpacked_of):
+            self._qpacked, self._qpacked_of = {}, self._stamp()
+        if (lo, hi) not in self._qpacked:
+            if self.w.dtype != torch.float32:
+                raise RuntimeError(
+                    f"int8 weights are quantized from the fp32 parameters, and these are "
+                    f"{self.w.dtype}: set BS_INT8=1 before the predictor casts the model "
+                    "(Model.to_compute), not after"
+                )
+            self._qpacked[(lo, hi)] = quant.pack_qweights(self.w.detach()[..., lo:hi, :])
+        return self._qpacked[(lo, hi)]
 
-def conv_split(xs, conv: Conv, relu: bool = False, scale_of=None):
+    def slices(self) -> list:
+        """The input-channel slices ``conv_split`` cuts ``w`` into."""
+        bounds = [0]
+        for c in self.parts:
+            bounds.append(bounds[-1] + c)
+        return list(zip(bounds[:-1], bounds[1:]))
+
+    def prepare_int8(self, device, src: Optional["Conv"] = None) -> None:
+        """The int8 weights of every slice, on ``device``, to be kept across
+        the cast that follows (``keep_int8``): quantized from the fp32
+        values of ``src``'s ``w`` (default this conv's; one conv's weights
+        on the device at a time), or, where ``src`` was cast already, the
+        int8 weights it kept from its fp32 parameters."""
+        src = self if src is None else src
+        if src.w.dtype == torch.float32:
+            wf = src.w.detach().to(device)
+            self._qpacked = {(lo, hi): quant.pack_qweights(wf[..., lo:hi, :]) for lo, hi in src.slices()}
+        elif src._qpacked and src._is_current(src._qpacked_of):
+            self._qpacked = {k: v.to(device) for k, v in src._qpacked.items()}
+        else:
+            raise RuntimeError(
+                f"int8 weights are quantized from the fp32 parameters, and these are {src.w.dtype} "
+                "with none kept from before their cast: set BS_INT8=1 before the model is cast"
+            )
+
+    def keep_int8(self) -> None:
+        """Mark the int8 weights as those of ``w`` as it now is (after the
+        cast that followed ``prepare_int8``)."""
+        self._qpacked_of = self._stamp()
+
+
+def conv_split(xs, conv: Conv, relu: bool = False):
     """Conv over the implicit channel concat of ``xs``: the sum of per-part
     convs with channel-split weights (the bias enters with the first).
     Under int8 (``quant.int8_active``) each part is quantized on its own, as
-    the JAX package's ``_conv_split`` does, with its scale taken over the
-    matching tensor of ``scale_of`` where given (a residual's uncropped
-    inputs)."""
+    the JAX package's ``_conv_split`` does, unless it comes quantized (a
+    ``quant.QuantizedInput``: a conv pass hands its first conv and its
+    residual the same quantized parts)."""
     q8 = quant.int8_active()
     off = 0
     y = None
-    for i, x in enumerate(xs):
+    for x in xs:
         c = x.shape[-1]
-        w = conv.w if len(xs) == 1 else conv.w[..., off : off + c, :]
         b = conv.b if y is None else None
         if q8:
-            part = quant.qconv(
-                x, w, b, relu=relu and len(xs) == 1, qw=conv.packed(torch.int8, off, off + c),
-                scale_of=None if scale_of is None else scale_of[i],
-            )
+            q = x if isinstance(x, quant.QuantizedInput) else quant.quantize_input(x)
+            part = quant.qconv_quantized(q, conv.packed(torch.int8, off, off + c), b, relu=relu and len(xs) == 1)
         else:
+            w = conv.w if len(xs) == 1 else conv.w[..., off : off + c, :]
             part = conv3d(
                 x, w, b, relu=relu and len(xs) == 1,
                 pack=lambda x=x, lo=off, hi=off + c: conv.packed(x.dtype, lo, hi),
@@ -195,21 +255,27 @@ def conv_split(xs, conv: Conv, relu: bool = False, scale_of=None):
 
 
 class ConvPass(nn.Module):
-    def __init__(self, in_ch, out_ch, kernel_sizes, activation="relu"):
+    def __init__(self, in_ch, out_ch, kernel_sizes, activation="relu", parts: Sequence[int] = ()):
+        """``parts``: the input's channel counts where it is an implicit
+        concat (default one part of ``in_ch``)."""
         super().__init__()
         layers = []
         ch = in_ch
-        for k in kernel_sizes:
-            layers.append(Conv(tuple(k), ch, out_ch))
+        for i, k in enumerate(kernel_sizes):
+            layers.append(Conv(tuple(k), ch, out_ch, parts if i == 0 else ()))
             ch = out_ch
         self.layers = nn.ModuleList(layers)
-        self.residual = Conv((1,) * len(kernel_sizes[0]), in_ch, out_ch)
+        self.residual = Conv((1,) * len(kernel_sizes[0]), in_ch, out_ch, parts)
         self.activation = activation
 
     def forward(self, xs):
         """``xs``: one tensor or a list treated as an implicit channel
         concat."""
         xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
+        if quant.int8_active():
+            # one quantization per input part, for the first conv and the
+            # residual: quantize(crop(x), amax(x)) == crop(quantize(x, amax(x)))
+            xs = [quant.quantize_input(x) for x in xs]
         act = _ACTIVATIONS[self.activation]
         n = len(self.layers)
         out = None
@@ -220,9 +286,10 @@ class ConvPass(nn.Module):
             if between and not fuse:
                 out = act(out)
         # the 1x1 residual commutes with the centre crop: crop first (under
-        # int8 each part's scale still comes from its uncropped input)
+        # int8 the crop of the quantized part, whose scale is the uncropped one's)
         target = out.shape[1:-1]
-        res = conv_split([center_crop(x, target) for x in xs], self.residual, scale_of=xs)
+        crops = [x.cropped(target) if isinstance(x, quant.QuantizedInput) else center_crop(x, target) for x in xs]
+        res = conv_split(crops, self.residual)
         return act(out.add_(res))
 
 
@@ -294,6 +361,7 @@ class UNet(nn.Module):
                         if cfg.num_fmaps_out is not None and level == 0
                         else nf * inc**level,
                         cfg.kernel_size_up[level],
+                        parts=(nf * inc**level, nf * inc ** (level + 1)),
                     )
                     for level in range(n - 1)
                 )

@@ -11,28 +11,35 @@ quantization, no calibration pass.
 
 - Activations: one scale per tensor, ``sx = max(amax|x|, 1e-30) / 127`` in
   fp32, taken over whatever tensor the graph hands to the conv (a part of
-  a channel concat on its own, a residual's input before its centre crop:
-  ``qconv``'s ``scale_of``).
+  a channel concat on its own, a residual's input before its centre crop).
 - Weights: one scale per output channel, the max over every other axis,
-  over 127.
+  over 127, from the fp32 parameters (``models/unet.py:Conv`` packs them
+  before a predictor casts the model).
 - ``q = clip(round(v / s), -127, 127)``: division (not a reciprocal
   product), ties to even.
 - int32 accumulation; ``acc * (sx * sw)`` in fp32, then the bias and the
   ReLU, cast to the compute dtype once.  (The JAX package casts before it
   adds the bias; in fp32 that is the same, in bf16 one rounding apart.)
 
-Routing (``qconv``), decided by the tensor's device before any launch: a
-CUDA tensor runs ``qconv_cuda``, the hand-written kernels of
-``csrc/qconv3d.cu`` (K4: the activation's amax, its quantization into s8
-channels padded to the conv's pitch, and an ``mma.sync`` s8 implicit-GEMM
-conv with the rescale fused), a CPU tensor the plain version
-``qconv_plain``: ``F.conv3d`` in float64 on the integer-valued tensors,
-which is exact (every partial sum stays below 2^53), then the same rescale.
+Two steps, so that one quantized activation can feed several convs:
+``quantize_input`` makes a ``QuantizedInput`` (the s8 tensor and its
+scale), ``qconv_quantized`` convolves one, or a centre crop of one
+(``QuantizedInput.cropped``): ``quantize(crop(x), amax(x))`` equals
+``crop(quantize(x, amax(x)))`` bit for bit, so a conv pass's 1x1 residual
+reads its first conv's s8 input.  ``qconv`` is the two in one call.
 
-``COUNTS["kernel"]`` counts ``qconv_cuda`` calls (each launches the three
-kernels once); ``KERNEL_LAUNCHES`` splits them by conv shape.  Gradients of
-round and clip are zero, so the U-Net takes this route only with grad
-disabled and training ignores the flag.
+Routing, decided by the tensor's device before any launch: a CUDA tensor
+runs the hand-written kernels of ``csrc/qconv3d.cu`` (K4: the activation's
+amax and its quantization into s8 channels padded to a pitch of 16, then a
+``wgmma`` s8 implicit-GEMM conv fed by TMA with the rescale fused); a CPU
+(or ``meta``) tensor the plain versions: ``quantize``, and ``F.conv3d`` in
+float64 on the integer-valued tensors, which is exact (every partial sum
+stays below 2^53), then the same rescale.
+
+``COUNTS["kernel"]`` counts conv launches, ``COUNTS["quantize"]`` pairs of
+quantization passes (amax, quantize); ``KERNEL_LAUNCHES`` splits the conv
+launches by shape.  Gradients of round and clip are zero, so the U-Net
+takes this route only with grad disabled and training ignores the flag.
 """
 
 from __future__ import annotations
@@ -48,16 +55,25 @@ import torch.nn.functional as F
 from . import _build
 from .conv3d import empty_channels_last
 
-#: route counters: "kernel" (``qconv_cuda`` calls), "plain" (CPU runs of
-#: ``qconv_plain``), "pack" (weights quantized and packed)
-COUNTS = {"kernel": 0, "plain": 0, "pack": 0}
+#: route counters: "kernel" (conv kernel launches), "quantize" (pairs of
+#: quantization kernel launches), "plain" (CPU convs), "quantize_plain" (CPU
+#: quantizations), "pack" (weights quantized and packed)
+COUNTS = {"kernel": 0, "quantize": 0, "plain": 0, "quantize_plain": 0, "pack": 0}
 
-#: ``qconv_cuda`` calls by conv: (x shape, w shape) -> count
+#: conv kernel launches by conv: (x shape, w shape) -> count
 KERNEL_LAUNCHES: dict = {}
 
 _LOCK = threading.Lock()
 
-BK = 64  # the kernel's K chunk in bytes: K is padded to it
+CHUNK = 128  # channels per K chunk: one 128-byte swizzled row of s8
+ROW_BYTES = 128
+PITCH = 16  # the s8 activations' channel pitch is a multiple of it
+#: the conv kernel's tile widths BN -> rows BM of the CTA tile (two
+#: consumer warpgroups of BM/2 rows each); as in csrc/qconv3d.cu
+TILE_WIDTHS = {16: 256, 64: 128, 160: 256, 256: 128}
+MAX_STAGES = 6
+SMEM_OPTIN = 232448  # bytes of shared memory one block can opt in to (H100)
+SMEM_HALF = 233472 // 2 - 1024  # each of two blocks on one SM (228 KB, 1 KB reserved a block)
 
 
 def int8_enabled() -> bool:
@@ -101,65 +117,152 @@ def quantize_weights(w):
     return _round_clip(wf / sw), sw
 
 
-def channel_pitch(ci: int) -> tuple:
-    """``(Cp, vec)``: the kernel's channel pitch for ``ci`` input channels
-    and its copy width; each tap's channels are padded to ``Cp``, so that a
-    copy never crosses a tap (16-byte copies from 32 channels on, where the
-    padding costs at most a fifth; 4-byte ones below)."""
-    vec = 16 if ci >= 32 else 4
-    return -(-ci // vec) * vec, vec
+def channel_pitch(ci: int) -> int:
+    """The s8 activations' channel pitch for ``ci`` channels: ``ci`` rounded
+    up to 16, so that every voxel starts on a 16-byte line (the conv's
+    tensor map and 16-byte copies need it)."""
+    return -(-ci // PITCH) * PITCH
+
+
+def k_pitch(ci: int) -> int:
+    """Bytes of K each tap takes in the conv's K walk: up to a pitch of 64,
+    the pitch rounded up to 16, 32 or 64, so that 8, 4 or 2 taps share a
+    128-byte K row (gathered); above, whole 128-channel chunks a tap
+    (through the tensor map)."""
+    cp = channel_pitch(ci)
+    if cp <= 64:
+        return next(p for p in (16, 32, 64) if p >= cp)
+    return _ceil_div(ci, CHUNK) * CHUNK
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _swizzle(t):
+    """Apply the 128-byte swizzle to ``(..., 8 rows, 8 groups, 16)``: the
+    16-byte group g of row r moves to g ^ r.  Its own inverse."""
+    r = torch.arange(8, device=t.device)
+    return t[..., r[:, None], r[:, None] ^ r[None, :], :]
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantizedWeights:
     """One conv's int8 weights: ``wq`` DHWIO int8, ``sw`` (Co,) fp32, and
-    ``data``, the kernel's layout: ``(Co, Kp)`` int8 with ``k = tap * Cp +
-    c``, zero past Ci in each tap and past the taps, ``Kp`` a multiple of
-    ``BK``."""
+    ``data``, the kernel's layout: K is ``k = tap * kp + c`` (``kp``:
+    ``k_pitch(Ci)``; a tap's 128-channel chunks, or several taps to a
+    128-byte row for narrow Ci), padded to 128, and each 128-byte K chunk a
+    block of ``co8`` rows (Co padded to 8) of 128 s8, K-major under the
+    128-byte swizzle, zero past Ci and Co; ``cp`` the activations' channel
+    pitch."""
 
     wq: torch.Tensor
     sw: torch.Tensor
     data: torch.Tensor
     cp: int
-    vec: int
+    kp: int
 
     @property
     def shape(self) -> tuple:
         return tuple(self.wq.shape)
 
+    def to(self, device) -> "QuantizedWeights":
+        return dataclasses.replace(self, wq=self.wq.to(device), sw=self.sw.to(device), data=self.data.to(device))
+
 
 def pack_qweights(w) -> QuantizedWeights:
-    """Quantize DHWIO weights (any channel slice, any strides, fp32 or
-    bf16) and pack them for the kernel; counted in ``COUNTS['pack']``."""
+    """Quantize DHWIO weights (any channel slice, any strides) and pack
+    them for the kernel; counted in ``COUNTS['pack']``.  ``w`` is to be the
+    fp32 parameter, as the JAX package quantizes it."""
     COUNTS["pack"] += 1
     wq, sw = quantize_weights(w)
     kd, kh, kw, ci, co = wq.shape
-    cp, vec = channel_pitch(ci)
+    taps, co8, kp = kd * kh * kw, _ceil_div(co, 8) * 8, k_pitch(ci)
+    chunks = _ceil_div(taps * kp, CHUNK)
+    t = torch.zeros((chunks * CHUNK, co8), dtype=torch.int8, device=wq.device)
+    t[: taps * kp].view(taps, kp, co8)[:, :ci, :co] = wq.reshape(taps, ci, co)
+    # k = chunk*128 + group*16 + e, n = block*8 + row
+    t = t.reshape(chunks, 8, 16, co8 // 8, 8).permute(0, 3, 4, 1, 2)
+    return QuantizedWeights(wq, sw, _swizzle(t).contiguous(), channel_pitch(ci), kp)
+
+
+def unpack_qweights(qw: QuantizedWeights) -> torch.Tensor:
+    """The DHWIO int8 weights that ``qw.data`` holds."""
+    kd, kh, kw, ci, co = qw.shape
     taps = kd * kh * kw
-    kp = -(-taps * cp // BK) * BK
-    data = torch.zeros((co, kp), dtype=torch.int8, device=wq.device)
-    rows = torch.zeros((taps, cp, co), dtype=torch.int8, device=wq.device)
-    rows[:, :ci] = wq.reshape(taps, ci, co)
-    data[:, : taps * cp] = rows.reshape(taps * cp, co).t()
-    return QuantizedWeights(wq, sw, data, cp, vec)
+    t = _swizzle(qw.data)  # (chunks, co8/8, 8 rows, 8 groups, 16)
+    t = t.permute(0, 3, 4, 1, 2).reshape(-1, t.shape[1] * 8)
+    return t[: taps * qw.kp].reshape(taps, qw.kp, -1)[:, :ci, :co].reshape(kd, kh, kw, ci, co)
 
 
-def qconv(x, w, b=None, *, relu: bool = False, out_dtype=None, qw=None, scale_of=None):
-    """``conv_valid(x, w) (+ b) (ReLU)`` in int8: NDHWC ``x``, DHWIO ``w``,
-    output in ``out_dtype`` (default ``x``'s).  ``qw`` is
-    ``pack_qweights(w)`` as the caller keeps it (made here without it);
-    ``scale_of`` is the tensor whose amax sets ``x``'s scale (default
-    ``x``; a residual passes its input before the centre crop).  The route
-    is the tensor's device: the kernels on a CUDA tensor, the plain version
-    on a CPU one."""
-    out_dtype = x.dtype if out_dtype is None else out_dtype
+@dataclasses.dataclass(frozen=True)
+class QuantizedInput:
+    """An activation quantized once: ``xq`` int8 ``(N, D, H, W, Ci)`` and its
+    fp32 scale ``sx``; ``dtype`` is the activation's (the convs' default
+    output dtype).  On the card ``xq`` is a view of a buffer whose channel
+    pitch is ``channel_pitch(Ci)``, zero past Ci."""
+
+    xq: torch.Tensor
+    sx: torch.Tensor
+    dtype: torch.dtype
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.xq.shape)
+
+    def cropped(self, target_spatial) -> "QuantizedInput":
+        """The centre crop of the spatial dims to ``target_spatial`` (a view,
+        the same scale): what a 1x1 residual reads."""
+        offsets = [(s - t) // 2 for s, t in zip(self.xq.shape[1:4], target_spatial)]
+        sl = tuple(slice(o, o + t) for o, t in zip(offsets, target_spatial))
+        return dataclasses.replace(self, xq=self.xq[(slice(None), *sl)])
+
+
+def quantize_input(x) -> QuantizedInput:
+    """``x`` (NDHWC) quantized with its own scale: the two kernels on a
+    CUDA tensor (``COUNTS['quantize']``), ``quantize`` elsewhere
+    (``COUNTS['quantize_plain']``)."""
+    if x.is_cuda:
+        q = quantize_cuda(x)
+        with _LOCK:
+            COUNTS["quantize"] += 1
+        return q
+    COUNTS["quantize_plain"] += 1
+    return QuantizedInput(*quantize(x), x.dtype)
+
+
+def qconv(x, w, b=None, *, relu: bool = False, out_dtype=None, qw=None):
+    """``conv_valid(x, w) (+ b) (ReLU)`` in int8, as the JAX package's
+    ``qconv``: NDHWC ``x``, DHWIO ``w``, output in ``out_dtype`` (default
+    ``x``'s).  ``qw`` is ``pack_qweights(w)`` as the caller keeps it (made
+    here without it).  ``quantize_input``, then ``qconv_quantized``."""
     if qw is None:
         qw = pack_qweights(w)
-    if x.is_cuda:
-        return qconv_cuda(x, qw, b, relu=relu, out_dtype=out_dtype, scale_of=scale_of)
+    return qconv_quantized(quantize_input(x), qw, b, relu=relu, out_dtype=out_dtype)
+
+
+def qconv_quantized(q: QuantizedInput, qw: QuantizedWeights, b=None, *, relu: bool = False,
+                    out_dtype=None):
+    """The conv of an already quantized input (or a crop of one): the
+    kernel on a CUDA tensor, the plain version elsewhere."""
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if q.xq.is_cuda:
+        return qconv_cuda(q, qw, b, relu=relu, out_dtype=out_dtype)
     COUNTS["plain"] += 1
-    sx = None if scale_of is None else activation_scale(scale_of)
-    return qconv_plain(x, w, b, relu=relu, out_dtype=out_dtype, qw=qw, sx=sx)
+    return _qconv_int(q.xq, q.sx, qw.wq, qw.sw, b, relu, out_dtype)
+
+
+def _qconv_int(xq, sx, wq, sw, b, relu, out_dtype):
+    acc = F.conv3d(
+        xq.to(torch.float64).permute(0, 4, 1, 2, 3),
+        wq.to(device=xq.device, dtype=torch.float64).permute(4, 3, 0, 1, 2),
+    ).permute(0, 2, 3, 4, 1)
+    y = acc.to(torch.float32) * (sx * sw.to(xq.device))
+    if b is not None:
+        y = y + b.to(device=xq.device, dtype=torch.float32)
+    if relu:
+        y = y.clamp_(min=0)
+    return y.to(out_dtype)
 
 
 def qconv_plain(x, w, b=None, *, relu: bool = False, out_dtype=torch.bfloat16, qw=None, sx=None):
@@ -168,110 +271,238 @@ def qconv_plain(x, w, b=None, *, relu: bool = False, out_dtype=torch.bfloat16, q
     then ``acc * (sx * sw)`` in fp32, the bias, the ReLU, one cast."""
     xq, sx = quantize(x, sx)
     wq, sw = quantize_weights(w) if qw is None else (qw.wq, qw.sw)
-    acc = F.conv3d(
-        xq.to(torch.float64).permute(0, 4, 1, 2, 3),
-        wq.to(device=x.device, dtype=torch.float64).permute(4, 3, 0, 1, 2),
-    ).permute(0, 2, 3, 4, 1)
-    y = acc.to(torch.float32) * (sx * sw.to(x.device))
-    if b is not None:
-        y = y + b.to(device=x.device, dtype=torch.float32)
-    if relu:
-        y = y.clamp_(min=0)
-    return y.to(out_dtype)
+    return _qconv_int(xq, sx, wq, sw, b, relu, out_dtype)
 
 
-def qconv_cuda(x, qw: QuantizedWeights, b=None, *, relu: bool = False, out_dtype=torch.bfloat16,
-               scale_of=None):
-    """Launch ``csrc/qconv3d.cu`` on ``x``'s device and current stream: the
-    amax of ``scale_of`` (default ``x``), ``x`` quantized into s8 at the
-    channel pitch of ``qw``, the s8 conv with the rescale, bias and ReLU
-    fused.  ``x`` (and ``scale_of``) may be strided views with channel
-    stride 1, bf16 or fp32; the output (bf16 or fp32) is laid out by
-    ``empty_channels_last``.  No host synchronisation.  Raises on anything
-    the kernels do not take."""
+# -- the CUDA route -----------------------------------------------------------
+
+
+def _load_bytes(x) -> int:
+    """Widest load (16 or 8 bytes) that ``x``'s start and voxel strides
+    allow, else the element's size."""
+    item = x.element_size()
+    offsets = [x.data_ptr()] + [s * item for s in x.stride()[:4]]
+    for vb in (16, 8):
+        if all(o % vb == 0 for o in offsets):
+            return vb
+    return item
+
+
+def _check_activation(t, what):
+    if t.dim() != 5 or t.stride(-1) != 1:
+        raise ValueError(f"qconv kernels need NDHWC {what} with channel stride 1, got {tuple(t.shape)}")
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qconv kernels take bf16 or fp32 activations, got {t.dtype}")
+
+
+def amax_cuda(x) -> torch.Tensor:
+    """The amax pass alone: an int32 scalar on ``x``'s device holding the
+    bits of ``max |x|`` (a strided NDHWC view, bf16 or fp32)."""
+    _check_activation(x, "x")
+    amax = torch.zeros((), dtype=torch.int32, device=x.device)
+    lib = _lib(x.device)
+    with torch.cuda.device(x.device):
+        err = lib.bs_s8_amax(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), _load_bytes(x), *x.shape, *x.stride()[:4],
+            amax.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"amax kernel launch failed: cudaError {err}")
+    return amax
+
+
+def quantize_pass_cuda(x, amax) -> QuantizedInput:
+    """The quantization pass alone: ``x`` in s8 with the scale of ``amax``
+    (``amax_cuda``'s result), into a contiguous buffer at the channel
+    pitch, as a view of its first Ci channels."""
+    _check_activation(x, "x")
+    ci = x.shape[-1]
+    xq = torch.empty((*x.shape[:4], channel_pitch(ci)), dtype=torch.int8, device=x.device)
+    sx = torch.empty((), dtype=torch.float32, device=x.device)
+    lib = _lib(x.device)
+    with torch.cuda.device(x.device):
+        err = lib.bs_s8_quantize(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), _load_bytes(x), *x.shape, *x.stride()[:4],
+            xq.shape[-1], amax.data_ptr(), sx.data_ptr(), xq.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"quantize kernel launch failed: cudaError {err}")
+    return QuantizedInput(xq[..., :ci], sx, x.dtype)
+
+
+def quantize_cuda(x) -> QuantizedInput:
+    """Both passes on ``x``'s device and current stream: the amax of ``x``,
+    then ``x`` quantized with it.  No host synchronisation."""
     if not x.is_cuda:
+        raise ValueError("quantize_cuda needs a CUDA tensor")
+    return quantize_pass_cuda(x, amax_cuda(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    co: int  # output channels of the conv
+    bn: int  # output channels per CTA tile (wgmma's N)
+    n_tiles: int  # tiles along Co
+    co8: int  # Co padded to 8: the rows of a packed weight block
+    stages: int  # ring depth
+
+
+def stage_bytes(bn: int) -> int:
+    return (TILE_WIDTHS[bn] + bn) * ROW_BYTES
+
+
+def smem_bytes(bn: int, stages: int) -> int:
+    """Dynamic shared memory of one launch: the ring, the per-row bases of
+    the gather, the barriers, and the slack to reach a 1024-byte line."""
+    return stages * stage_bytes(bn) + TILE_WIDTHS[bn] * 8 + 2 * MAX_STAGES * 8 + 1024
+
+
+def blocks_per_sm(bn: int) -> int:
+    """Blocks of tile width ``bn`` that share an SM: two for the narrow
+    tiles (16, 64), one otherwise; as in csrc/qconv3d.cu."""
+    return 2 if bn <= 64 else 1
+
+
+def ring_stages(bn: int) -> int:
+    """The ring's depth at tile width ``bn``: what shared memory allows
+    (half an SM's where two blocks share it)."""
+    cap = SMEM_OPTIN if blocks_per_sm(bn) == 1 else SMEM_HALF
+    return min(MAX_STAGES, (cap - smem_bytes(bn, 0)) // stage_bytes(bn))
+
+
+def tile_plan(co: int) -> TilePlan:
+    """The conv kernel's tiling for a Ci -> Co conv.
+
+    BN is 16 up to 16 channels; above, the width of 64, 160 or 256 that
+    pads Co the least (the wider one on a tie): 60 -> 1x64, 300 -> 2x160,
+    1500 -> 6x256.  K walks the weights' layout (``k_pitch``) and runs
+    only the k32 steps that hold real channels.  The ring is as deep as
+    shared memory allows."""
+    widths = [16] if co <= 16 else [n for n in TILE_WIDTHS if n > 16]
+    bn = min(widths, key=lambda n: (_ceil_div(co, n) * n, -n))
+    return TilePlan(
+        co=co, bn=bn, n_tiles=_ceil_div(co, bn), co8=_ceil_div(co, 8) * 8, stages=ring_stages(bn),
+    )
+
+
+def _store_mode(out, plan: TilePlan) -> int:
+    """2: one contiguous run per warpgroup (one tile holds every channel of
+    a dense output), 1: 16-byte lines along the channels, 0: single values."""
+    ldo, es = out.stride(3), out.element_size()
+    if out.data_ptr() % 16:
+        return 0
+    if plan.n_tiles == 1 and ldo == plan.co:
+        return 2
+    return 1 if (ldo * es) % 16 == 0 else 0
+
+
+def qconv_cuda(q: QuantizedInput, qw: QuantizedWeights, b=None, *, relu: bool = False,
+               out_dtype=torch.bfloat16):
+    """Launch the conv of ``csrc/qconv3d.cu`` on ``q``'s device and current
+    stream: the s8 view ``q.xq`` (a quantized tensor or a centre crop of
+    one, its voxels at the pitch ``qw.cp``) through an im2col tensor map,
+    with the rescale, bias and ReLU fused; bf16 or fp32 out, laid out by
+    ``empty_channels_last``.  No host synchronisation.  Raises on anything
+    the kernel does not take."""
+    xq = q.xq
+    if not xq.is_cuda:
         raise ValueError("qconv_cuda needs a CUDA tensor")
-    src = x if scale_of is None else scale_of
-    for t in (x, src):
-        if t.dim() != 5 or t.stride(-1) != 1:
-            raise ValueError(f"qconv kernel needs NDHWC tensors with channel stride 1, got {t.shape}")
-        if t.dtype not in (torch.bfloat16, torch.float32):
-            raise TypeError(f"qconv kernel takes bf16 or fp32 activations, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError("x and scale_of must be on one device")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qconv kernel writes bf16 or fp32, not {out_dtype}")
     kd, kh, kw, ci, co = qw.shape
-    n, d, h, ww, cx = x.shape
-    if cx != ci or d < kd or h < kh or ww < kw:
-        raise ValueError(f"qconv kernel does not take {tuple(x.shape)} x {qw.shape}")
-    if src.shape[-1] != ci:
-        raise ValueError("scale_of must have x's channels")
-    if qw.data.device != x.device or (b is not None and b.device != x.device):
-        raise ValueError("x, the packed weights and b must be on one device")
-    lib = _lib()
-    dev = x.device
+    n, d, h, ww, cx = xq.shape
+    if xq.dtype != torch.int8 or xq.stride(-1) != 1 or cx != ci or d < kd or h < kh or ww < kw:
+        raise ValueError(f"qconv kernel does not take {tuple(xq.shape)} x {qw.shape}")
+    if max(kd, kh, kw) > 16:
+        raise ValueError(f"qconv kernel takes windows up to 16 a side, not {qw.shape[:3]}")
+    strides = xq.stride()[:4]
+    if xq.stride(3) != qw.cp or any(s % PITCH for s in strides) or xq.data_ptr() % 16:
+        raise ValueError("the s8 input is not a view of a tensor at the weights' channel pitch")
+    if qw.data.device != xq.device or (b is not None and b.device != xq.device):
+        raise ValueError("the input, the packed weights and b must be on one device")
+    dev = xq.device
     bias = None if b is None else b.to(torch.float32).contiguous()
     out = empty_channels_last((n, d - kd + 1, h - kh + 1, ww - kw + 1, co), out_dtype, dev)
-    amax = torch.zeros((), dtype=torch.int32, device=dev)
-    sx = torch.empty((), dtype=torch.float32, device=dev)
-    xq = torch.empty((n, d, h, ww, qw.cp), dtype=torch.int8, device=dev)
+    plan = tile_plan(co)
+    tpr = CHUNK // qw.kp if qw.kp < CHUNK else 0
+    lib = _lib(dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bs_s8_amax(
-            src.data_ptr(), int(src.dtype == torch.bfloat16), *src.shape, *src.stride()[:4],
-            amax.data_ptr(), stream,
+        err = lib.bs_qconv3d(
+            xq.data_ptr(), n, d, h, ww, qw.cp, ci, *strides, tpr, qw.data.data_ptr(), q.sx.data_ptr(),
+            qw.sw.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.float32), kd, kh, kw, co, plan.co8, out.stride(3), int(relu),
+            plan.bn, plan.stages, _store_mode(out, plan), torch.cuda.current_stream(dev).cuda_stream,
         )
-        if err == 0:
-            err = lib.bs_s8_quantize(
-                x.data_ptr(), int(x.dtype == torch.bfloat16), *x.shape, *x.stride()[:4], qw.cp,
-                amax.data_ptr(), sx.data_ptr(), xq.data_ptr(), stream,
-            )
-        if err == 0:
-            err = lib.bs_qconv3d(
-                xq.data_ptr(), qw.data.data_ptr(), sx.data_ptr(), qw.sw.data_ptr(),
-                None if bias is None else bias.data_ptr(), out.data_ptr(),
-                int(out_dtype == torch.bfloat16), n, d, h, ww, qw.cp, qw.vec, kd, kh, kw, co,
-                qw.data.shape[1], out.stride(3), int(relu), stream,
-            )
     if err != 0:
         raise RuntimeError(f"qconv kernel launch failed: cudaError {err}")
-    key = (tuple(x.shape), qw.shape)
+    key = (tuple(xq.shape), qw.shape)
     with _LOCK:
         COUNTS["kernel"] += 1
         KERNEL_LAUNCHES[key] = KERNEL_LAUNCHES.get(key, 0) + 1
     return out
 
 
-def _lib():
+_INITIALISED: set = set()
+
+
+def _lib(device=None):
+    """The built library; on first use per device, the conv kernels are
+    given the device's opt-in shared memory and the tensor-map encoder is
+    found (once, not per launch)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tensor = [p, i, i, i, i, i, i, ll, ll, ll, ll]
-    return _build.load(
+    view = [p, i, i, i, i, i, i, i, ll, ll, ll, ll]
+    lib = _build.load(
         "qconv3d",
         {
-            "bs_s8_amax": ([*tensor, p, p], i),
-            "bs_s8_quantize": ([*tensor, i, p, p, p, p], i),
-            "bs_qconv3d": ([p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, ll, i, p], i),
+            "bs_s8_amax": ([*view, p, p], i),
+            "bs_s8_quantize": ([*view, i, p, p, p, p], i),
+            "bs_qconv3d": (
+                [p, ll, i, i, i, i, i, ll, ll, ll, ll, i, p, p, p, p, p, i, i, i, i, i, i, ll, i, i, i, i, p],
+                i,
+            ),
+            "bs_qconv3d_init": ([], i),
+            "bs_qconv3d_smem_bytes": ([i, i], i),
             "bs_qconv3d_kernel_info": ([i, ctypes.POINTER(i)], i),
         },
     )
+    index = torch.device("cuda" if device is None else device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    with _LOCK:
+        if index not in _INITIALISED:
+            with torch.cuda.device(index):
+                err = lib.bs_qconv3d_init()
+            if err != 0:
+                raise RuntimeError(f"qconv kernel set-up failed: cudaError {err}")
+            _INITIALISED.add(index)
+    return lib
 
 
 def kernel_info() -> list:
-    """Per conv kernel instantiation of ``csrc/qconv3d.cu``: copy width,
-    output dtype, registers per thread, static shared memory and local
+    """Per kernel instantiation of ``csrc/qconv3d.cu``: the conv's tile
+    (with its planned ring and dynamic shared memory) or the pass's input
+    type and load width, registers per thread, shared memory and local
     (spill) bytes, from ``cudaFuncGetAttributes``."""
     lib = _lib()
-    rows, info, index = [], (ctypes.c_int * 5)(), 0
+    rows, info, index = [], (ctypes.c_int * 9)(), 0
     while True:
         err = lib.bs_qconv3d_kernel_info(index, info)
         if err == -1:
             return rows
         if err != 0:
             raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
-        vec, bf16, regs, static, local = info
-        rows.append({
-            "vec": vec, "out": "bf16" if bf16 else "fp32", "registers": regs,
-            "static_smem": static, "local_bytes": local,
-        })
+        kind, bn, bm, bf16, vb, regs, static, max_dynamic, local = info
+        row = {
+            "kind": ("conv", "amax", "quantize")[kind], "registers": regs, "static_smem": static,
+            "max_dynamic_smem": max_dynamic, "local_bytes": local,
+        }
+        if kind == 0:
+            row.update(bn=bn, bm=bm, stages=ring_stages(bn))
+            row["dynamic_smem"] = lib.bs_qconv3d_smem_bytes(bn, row["stages"])
+            if row["dynamic_smem"] != smem_bytes(bn, row["stages"]):
+                raise RuntimeError("host and kernel disagree on shared memory")
+        else:
+            row.update(input="bf16" if bf16 else "fp32", load_bytes=vb)
+        rows.append(row)
         index += 1

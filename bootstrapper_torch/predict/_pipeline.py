@@ -202,8 +202,7 @@ class Lane:
         if replicate:
             model = model.replicate(device, compute_dtype)
         else:
-            model.compute_dtype = compute_dtype
-            model = model.to(device=device, dtype=compute_dtype)
+            model = model.to_compute(device, compute_dtype)
         self.model = model.eval()
         self.io = DeviceIO(device) if device.type == "cuda" else None
 

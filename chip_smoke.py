@@ -180,16 +180,21 @@ Phases, each printing one JSON line:
     theirs); every new K1 shape is held against the plain version and
     counted into the ``kernels`` line.
 (q) int8 inference (``int8``), after ``multi``: the int8 conv kernel (K4:
-    amax, quantization, ``mma.sync`` s8 conv) against its plain version
-    (exact int32 sums in float64) at every conv of a tile under
-    ``BS_INT8=1`` (traced on the ``meta`` device: the 1-, 12-, 60-, 300- and
-    1500-channel levels, the concat parts, the residuals with their scales
-    over the uncropped inputs, the heads) and at a 2D (1,3,3) shape, each
-    within one bf16 ulp, timed beside the bf16 route at the same shape;
-    then ``run_prediction`` under ``BS_INT8=1`` on
-    the main path's tiled volume and on the streamed one, launch counts
-    zeroed before and read after (every conv of every tile or step on K4,
-    once per tile or step at each traced shape, none on K1 or the
+    amax and quantization passes, a ``wgmma`` s8 conv fed by TMA or, for
+    inputs of up to 64 channels, a cp.async gather of several taps a K row)
+    against its plain version (exact int32 sums in float64) at every conv
+    of a tile under ``BS_INT8=1`` (traced on the ``meta`` device: the 1-,
+    12-, 60-, 300- and 1500-channel levels, the concat parts, the residuals
+    on the centre crops of their passes' s8 inputs, the heads) and at a 2D
+    (1,3,3) shape, each within one bf16 ulp, timed as the net runs it
+    (with its passes where it quantizes) beside the bf16 route at the same
+    shape, and each of the tile's passes alone, bit for bit against its
+    plain version, beside its byte bound (the int8 tile forward is
+    profiled by kernel beside the bf16 one: ``tile_breakdown_int8``); then
+    ``run_prediction`` under ``BS_INT8=1`` on the main path's tiled volume
+    and on the streamed one, launch counts zeroed before and read after
+    (every conv of every tile or step on K4, once per tile or step at each
+    traced shape, one pair of passes per conv-pass input, none on K1 or the
     library; the stream's warm and steady steps traced under the flag at
     its plan and K4 held against its plain version at their convs too),
     the uint8 affinities held to the bf16 ones within INT8_MAX_MEAN and
@@ -343,9 +348,11 @@ BLOCKWISE_NOISE = 0.15
 BLOCKWISE_BLOCK = (32, 256, 256)
 # blockwise mws runs on the first 16 of the synth volume's 64 sections (2
 # blocks), so that the whole script's `done` stays under 1000 s with the
-# multi phase (the whole depth takes about 64 s)
+# multi phase (the whole depth takes about 64 s); the synth phase's mws
+# sweep is one bias pair (two took 43.9 s of the phase, an H100 80GB HBM3
+# at 700 W), so that the int8 phase fits too
 BLOCKWISE_MWS_SECTIONS = 16
-SYNTH_BIAS_SWEEP = [[-0.55, -0.8], [-0.7, -0.9]]
+SYNTH_BIAS_SWEEP = [[-0.55, -0.8]]
 
 
 # the streamed main path's volume: deeper than 96 slices and, at the plan's
@@ -1258,7 +1265,8 @@ def per_voxel(flops: dict) -> float:
 
 def device_groups(prof) -> tuple:
     """``(device ms, ms by group, the 8 longest kernels)`` of a profile's
-    device events: the conv kernel, the library's convs, everything else."""
+    device events: the conv kernel, the library's convs, everything else
+    (and, where they ran, the int8 conv kernel and its quantization passes)."""
     import torch
 
     by_name = {}
@@ -1271,7 +1279,10 @@ def device_groups(prof) -> tuple:
     groups = {"conv3d_kernel": 0.0, "library_conv": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
-        if "conv3d_kernel" in low:
+        if "qconv3d_kernel" in low or "s8_amax" in low or "s8_quantize" in low:
+            key = "qconv3d_kernel" if "qconv3d_kernel" in low else "s8_passes"
+            groups[key] = groups.get(key, 0.0) + ms
+        elif "conv3d_kernel" in low:
             groups["conv3d_kernel"] += ms
         elif any(k in low for k in ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass")):
             groups["library_conv"] += ms
@@ -1282,8 +1293,9 @@ def device_groups(prof) -> tuple:
 
 
 def tile_breakdown(net_config: dict, params, seed: int) -> dict:
-    """Device time of one full-size tile forward (bf16), by kernel, from
-    ``torch.profiler``; ``None`` where the profiler saw no device time."""
+    """Device time of one full-size tile forward (bf16, or int8 under
+    ``BS_INT8=1``), by kernel, from ``torch.profiler``; ``None`` where the
+    profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1306,13 +1318,17 @@ def tile_breakdown(net_config: dict, params, seed: int) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    packs_before = launch_counts()["conv3d.pack"]
+    def packs():
+        counts = launch_counts()
+        return counts["conv3d.pack"] + counts["qconv3d.pack"]
+
+    packs_before = packs()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()  # after the profiler's start-up
         pred.forward(x)
         torch.cuda.synchronize()
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    repacked = launch_counts()["conv3d.pack"] - packs_before
+    repacked = packs() - packs_before
     if repacked:
         raise AssertionError(f"a warm forward packed weights {repacked} times")
     device_ms, groups, top = device_groups(prof)
@@ -4261,67 +4277,79 @@ def multi_phase(work: str, seed: int, net_config: dict, net_config_2d: dict, sha
 
 
 def trace_int8_convs(net_config: dict, input_shape=None, stream=None) -> list:
-    """Every conv that one tile of ``input_shape`` hands to ``quant.qconv``
-    under ``BS_INT8=1``, or (``stream``: ``(step_tile, s_warm)``, as
-    ``trace_stream_convs`` takes them) a z stream's warm step and then its
-    steady step, named ``warm_``/``steady_``; traced on the ``meta``
-    device, in call order: ``(name, base shape, scale shape, x shape,
-    weight shape, bias, relu)``; ``x`` is a centre crop of the tensor its
-    scale is taken over (``scale shape``, None: ``x`` itself), which is a
-    centre crop of a tensor of the base shape."""
+    """Every conv that one tile of ``input_shape`` hands to
+    ``quant.qconv_quantized`` under ``BS_INT8=1``, or (``stream``:
+    ``(step_tile, s_warm)``, as ``trace_stream_convs`` takes them) a z
+    stream's warm step and then its steady step, named ``warm_``/``steady_``;
+    traced on the ``meta`` device, in call order: ``(name, base shape, scale
+    shape, x shape, weight shape, bias, relu)``.  ``x`` is the quantized
+    activation, or a centre crop of it (``scale shape``: the activation's
+    shape, where the conv reads the s8 tensor an earlier conv of its pass
+    read: the 1x1 residuals; None: the conv quantized ``x`` itself), and the
+    activation is a centre crop of a tensor of the base shape."""
     import torch
 
     from bootstrapper_torch.models import Model
     from bootstrapper_torch.models.zstream import z_context
     from bootstrapper_torch.ops import quant as Q
 
-    real, cases, prefix = Q.qconv, [], [""]
+    real, real_quantize, cases, prefix = Q.qconv_quantized, Q.quantize_input, [], [""]
+    quantized, used = {}, set()  # by the scale tensor, which a crop keeps
 
-    def record(x, w, b=None, *, relu=False, out_dtype=None, qw=None, scale_of=None):
-        src = x if scale_of is None else scale_of
-        bs = storage_shape(src)
-        ws = tuple(w.shape)
+    def record_quantize(x):
+        q = real_quantize(x)
+        quantized[id(q.sx)] = (storage_shape(x), tuple(x.shape), q.sx)
+        return q
+
+    def record(q, qw, b=None, *, relu=False, out_dtype=None):
+        bs, full, _ = quantized[id(q.sx)]
+        shared = id(q.sx) in used
+        used.add(id(q.sx))
+        ws = qw.shape
         n = sum(c[0].startswith(prefix[0]) for c in cases)
         name = f"{prefix[0]}c{n:02d}_{ws[3]}to{ws[4]}_k{''.join(map(str, ws[:3]))}"
-        cases.append((name, bs, None if scale_of is None else tuple(src.shape), tuple(x.shape), ws, b is not None,
-                      relu))
-        return real(x, w, b, relu=relu, out_dtype=out_dtype, qw=qw, scale_of=scale_of)
+        cases.append((name, bs, full if shared else None, q.shape, ws, b is not None, relu))
+        return real(q, qw, b, relu=relu, out_dtype=out_dtype)
 
-    saved = os.environ.get("BS_INT8")
-    os.environ["BS_INT8"] = "1"
-    Q.qconv = record
+    Q.qconv_quantized, Q.quantize_input = record, record_quantize
     try:
-        with torch.device("meta"):
-            model = Model(net_config).eval()
-        cin = model.unet_config.in_channels
-        with torch.no_grad():
-            if stream is None:
-                model(torch.empty((1, *input_shape, cin), device="meta"))
-            else:
-                step_tile, s_warm = stream
-                warm_z = s_warm + z_context(model.unet_config)
-                prefix[0] = "warm_"
-                _, state = model.forward_stream(torch.empty((1, warm_z, *step_tile[1:], cin), device="meta"), None)
-                prefix[0] = "steady_"
-                model.forward_stream(torch.empty((1, *step_tile, cin), device="meta"), state)
+        with int8_flag():
+            with torch.device("meta"):
+                model = Model(net_config).eval()
+            cin = model.unet_config.in_channels
+            with torch.no_grad():
+                if stream is None:
+                    model(torch.empty((1, *input_shape, cin), device="meta"))
+                else:
+                    step_tile, s_warm = stream
+                    warm_z = s_warm + z_context(model.unet_config)
+                    prefix[0] = "warm_"
+                    _, state = model.forward_stream(torch.empty((1, warm_z, *step_tile[1:], cin), device="meta"), None)
+                    prefix[0] = "steady_"
+                    model.forward_stream(torch.empty((1, *step_tile, cin), device="meta"), state)
     finally:
-        Q.qconv = real
-        if saved is None:
-            os.environ.pop("BS_INT8", None)
-        else:
-            os.environ["BS_INT8"] = saved
+        Q.qconv_quantized, Q.quantize_input = real, real_quantize
     return cases
 
 
-def check_qconv(seed: int, cases) -> list:
-    """K4 (amax, quantization, s8 conv: ``qconv_cuda``) against
-    ``qconv_plain`` on the card at each of ``cases``: bf16 out, each output
-    within one bf16 ulp of the plain version (whose int32 sums are exact);
-    its time (CUDA events around 2-5 queued calls, ``timing_iters``, the
-    activation's quantization included), the plain version's, the bf16 route's at the
-    same shape (K1 where it takes the shape, else the library: the
-    ``library_ms`` of the row, as no PyTorch call computes an s8 conv) and
-    the bound at the int8 peak."""
+def check_qconv(seed: int, cases, passes: bool = True) -> tuple:
+    """K4 against ``qconv_plain`` on the card at each of ``cases``, as the
+    net runs each conv: one that quantizes its own input with its two
+    passes (amax, quantization), a residual (``scale shape`` given) from
+    the centre crop of the s8 tensor its pass's first conv read, with that
+    tensor's scale.  bf16 out, each output within one bf16 ulp of the plain
+    version (whose int32 sums are exact).  A row's ``ms`` is the conv as the
+    net runs it (CUDA events around 2-5 queued calls, ``timing_iters``),
+    ``conv_ms`` the conv kernel alone; beside them the plain version's time,
+    the bf16 route's at the same shape (K1 where it takes the shape, else
+    the library: the ``library_ms`` of the row, as no PyTorch call computes
+    an s8 conv) and the bound: operations at the int8 peak, or the bytes of
+    the bf16 input (2 a value; a residual's s8 crop, 1), the s8 weights, the
+    bf16 output and the bias.  Returns ``(conv rows, pass rows)``: the
+    passes' own rows, the amax's and the quantization's at each conv that
+    quantizes, each timed alone beside its byte bound.  ``passes=False``
+    times a conv that quantizes only as the net runs it (``conv_ms`` None)
+    and makes no pass rows: the z stream's convs, to keep the phase short."""
     import torch
 
     from bootstrapper_torch.models.unet import center_crop
@@ -4329,19 +4357,25 @@ def check_qconv(seed: int, cases) -> list:
     from bootstrapper_torch.ops import quant as Q
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = []
+    rows, pass_rows = [], []
     for name, bs, ss, xs, ws, with_bias, relu in cases:
         base = C.empty_channels_last(bs, torch.bfloat16, "cuda")
         base.copy_(torch.randn(bs, generator=gen, device="cuda"))
         outer = base if ss is None else center_crop(base, ss[1:4])
         x = center_crop(outer, xs[1:4])
-        src = x if ss is None else outer  # the tensor the scale is taken over
+        shared = ss is not None
+        src = outer if shared else x  # the tensor quantized: its scale
         fan_in = ws[0] * ws[1] * ws[2] * ws[3]
         w = torch.randn(ws, generator=gen, device="cuda") / fan_in**0.5
         b = torch.randn(ws[-1], generator=gen, device="cuda").to(torch.bfloat16) if with_bias else None
         qw = Q.pack_qweights(w)
-        scale_of = None if ss is None else src
-        got, first_ms = timed_call(lambda: Q.qconv_cuda(x, qw, b, relu=relu, scale_of=scale_of))
+
+        def quantized():
+            q = Q.quantize_cuda(src)
+            return q.cropped(xs[1:4]) if shared else q
+
+        q = quantized()
+        got, first_ms = timed_call(lambda: Q.qconv_quantized(quantized() if not shared else q, qw, b, relu=relu))
         got = got.float()
         ref, plain_ms = timed_call(lambda: Q.qconv_plain(x, w, b, relu=relu, qw=qw, sx=Q.activation_scale(src)))
         ref = ref.float()
@@ -4351,8 +4385,13 @@ def check_qconv(seed: int, cases) -> list:
         if not bool((diff <= ulp).all()):
             raise AssertionError(f"qconv kernel {name}: max |err| {err}, beyond one bf16 ulp of the plain version")
         iters, sleep = timing_iters(first_ms, most=5), KERNEL_SLEEP_MS
-        ms = cuda_time_ms(
-            lambda: Q.qconv_cuda(x, qw, b, relu=relu, scale_of=scale_of), iters=iters, queued=True, sleep_ms=sleep
+        conv_ms = None
+        if shared or passes:
+            conv_ms = cuda_time_ms(
+                lambda: Q.qconv_quantized(q, qw, b, relu=relu), iters=iters, queued=True, sleep_ms=sleep
+            )
+        ms = conv_ms if shared else cuda_time_ms(
+            lambda: Q.qconv_quantized(quantized(), qw, b, relu=relu), iters=iters, queued=True, sleep_ms=sleep
         )
         wb = w.to(torch.bfloat16)
         if C.conv3d_supported(tuple(x.shape), ws):
@@ -4366,51 +4405,98 @@ def check_qconv(seed: int, cases) -> list:
             bf16_ms = cuda_time_ms(lambda: C.conv3d_library(x, wb, b, relu=relu), iters=iters, queued=True, sleep_ms=sleep)
         out_vox = got.numel() // ws[-1]
         macs = out_vox * ws[-1] * fan_in
-        nbytes = x.numel() + w.numel() + 2 * got.numel() + (0 if b is None else 4 * b.numel())
+        x_bytes = x.numel() * (1 if shared else 2)
+        nbytes = x_bytes + w.numel() + 2 * got.numel() + (0 if b is None else 4 * b.numel())
         bound_ms, bound_by = bound(2.0 * macs, PEAK_INT8, float(nbytes))
         rows.append({
             "shape": name, "x": list(xs), "scale_over": None if ss is None else list(ss), "w": list(ws),
-            "relu": relu, "max_abs_err": err, "tolerance": "one bf16 ulp of the plain version",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "relu": relu, "input": "the s8 crop of its pass's quantized input" if shared else "bf16, quantized here",
+            "max_abs_err": err, "tolerance": "one bf16 ulp of the plain version",
+            "ms": ms, "conv_ms": conv_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": bf16_ms, "library_ms_of": f"the bf16 route at this shape: {bf16_route}",
-            "tops": 2.0 * macs / ms / 1e9,
+            "tops": 2.0 * macs / ms / 1e9, "conv_tops": None if conv_ms is None else 2.0 * macs / conv_ms / 1e9,
         })
         emit({"phase": "kernel_check", "kernel": "qconv3d", **rows[-1]})
-        del base, outer, src, x, w, b, qw, got, ref, diff, ulp
+        if passes and not shared:
+            pass_rows += check_passes(name, x, iters, sleep)
+        del base, outer, src, x, w, b, qw, q, got, ref, diff, ulp
         torch.cuda.empty_cache()
+    return rows, pass_rows
+
+
+def check_passes(name: str, x, iters: int, sleep: float) -> list:
+    """K4's two quantization passes alone at a conv's input ``x`` (a bf16
+    view): the amax against PyTorch's (one call, ``vector_norm`` of order
+    inf: the ``library_ms``), the quantization against ``quantize``, each
+    bit for bit, timed beside its bound: the bytes it must move (the amax
+    reads ``x``; the quantization reads it and writes the s8 tensor at the
+    channel pitch) over the card's memory rate."""
+    import torch
+
+    from bootstrapper_torch.ops import quant as Q
+
+    amax, amax_ms = timed_call(lambda: Q.amax_cuda(x))
+    want, plain_amax_ms = timed_call(lambda: x.abs().amax().float())
+    if int(amax) != int(want.view(torch.int32)):
+        raise AssertionError(f"amax pass {name}: {int(amax)} against {int(want.view(torch.int32))}")
+    q = Q.quantize_pass_cuda(x, amax)
+    (ref, sx), plain_q_ms = timed_call(lambda: Q.quantize(x, Q.activation_scale(x)))
+    if not (torch.equal(q.xq, ref) and float(q.sx) == float(sx)):
+        raise AssertionError(f"quantization pass {name}: not equal to quantize")
+    lib_ms = cuda_time_ms(lambda: torch.linalg.vector_norm(x, float("inf")), iters=iters, queued=True, sleep_ms=sleep)
+    read = 2.0 * x.numel()
+    written = float(q.xq._base.numel())
+    rows = []
+    for kernel, fn, nbytes, plain_ms, library_ms in (
+        ("s8_amax", lambda: Q.amax_cuda(x), read, plain_amax_ms, lib_ms),
+        ("s8_quantize", lambda: Q.quantize_pass_cuda(x, amax), read + written, plain_q_ms, None),
+    ):
+        ms = cuda_time_ms(fn, iters=max(iters, 5), queued=True, sleep_ms=sleep)
+        rows.append({
+            "kernel": kernel, "shape": name, "x": list(x.shape), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes", "library_ms": library_ms,
+            "max_abs_err": 0.0, "gb_per_s": nbytes / ms / 1e6,
+        })
+        emit({"phase": "kernel_check", **rows[-1]})
     return rows
 
 
 def int8_phase(work: str, net_config: dict, params, seed: int, bf16: dict, device="cuda") -> tuple:
     """``BS_INT8=1`` through the user entry points: K4 held against its
     plain version at every conv of a tile (traced under the flag) and at a
-    2D (1,3,3) shape; then ``run_prediction`` on the main path's tiled
-    volume and on the streamed one (segmentation reads no flag), with the
-    launch counts zeroed before and read after: every conv of every tile
-    or step on K4, none on K1 or the library, and K4 launched once per
-    tile, or per step, at each traced (x, weight) shape and at no other;
-    the stream's warm and steady steps are traced under the flag at the
-    run's plan and K4 held against its plain version at their convs too;
-    the uint8 affinities against the bf16 ones of the same weights
-    (``bf16``: {"tiled", "stream"}) within INT8_MAX_MEAN and
-    INT8_MAX_DIFF.  Returns ``(line, kernel rows)``: the tile's rows first,
-    then the 2D shape's, then the stream's, each with its launches."""
+    2D (1,3,3) shape, its passes at each conv of the tile that quantizes;
+    then ``run_prediction`` on the main path's tiled volume and on the streamed one (segmentation reads no flag), with
+    the launch counts zeroed before and read after: every conv of every
+    tile or step on K4, none on K1 or the library, K4 launched once per
+    tile, or per step, at each traced (x, weight) shape and at no other,
+    and one pair of quantization passes per conv-pass input (none for the
+    residuals); the stream's warm and steady steps are traced under the
+    flag at the run's plan and K4 held against its plain version at their
+    convs too; the uint8 affinities against the bf16 ones of the same
+    weights (``bf16``: {"tiled", "stream"}) within INT8_MAX_MEAN and
+    INT8_MAX_DIFF.  Returns ``(line, kernel rows, pass rows)``: the tile's
+    rows first, then the 2D shape's, then the stream's, each with its
+    launches."""
     from collections import Counter
 
     t_phase = time.perf_counter()
     cuda = torch_cuda(device)
     cases = trace_int8_convs(net_config, TILED_INPUT)
+    quantizing = sum(c[2] is None for c in cases)  # convs that quantize their input
     t0 = time.perf_counter()
-    rows = check_qconv(seed, cases + [INT8_2D_CASE]) if cuda else []
-    out = {"check_seconds": time.perf_counter() - t0, "convs_per_tile": len(cases)}
+    rows, pass_rows = check_qconv(seed, cases + [INT8_2D_CASE]) if cuda else ([], [])
+    out = {"check_seconds": time.perf_counter() - t0, "convs_per_tile": len(cases),
+           "quantizations_per_tile": quantizing}
     if rows:
         tile_rows = rows[: len(cases)]
-        out["tile_ms"] = {"int8_k4": sum(r["ms"] for r in tile_rows), "bf16": sum(r["library_ms"] for r in tile_rows)}
+        out["tile_ms"] = {
+            "int8_k4": sum(r["ms"] for r in tile_rows), "int8_k4_conv_kernels": sum(r["conv_ms"] for r in tile_rows),
+            "int8_passes": sum(r["ms"] for r in pass_rows[: 2 * quantizing]),
+            "bf16": sum(r["library_ms"] for r in tile_rows),
+        }
         for r in rows:
             r["launches"] = 0
-    saved = os.environ.get("BS_INT8")
-    os.environ["BS_INT8"] = "1"
-    try:
+    with int8_flag():
         for name, shape, stream in (("tiled", (8, 640, 640), False), ("stream", ZSTREAM_SHAPE, True)):
             with tempfile.TemporaryDirectory(prefix=f"bs_chip_smoke_int8_{name}_", dir=work) as sub:
                 res = run_main_path(sub, net_config, params, shape, seed, device, zstream=stream, segment=False)
@@ -4418,10 +4504,14 @@ def int8_phase(work: str, net_config: dict, params, seed: int, bf16: dict, devic
             steps = res["tiles"]  # a stream's tiles are its steps
             if (
                 counts["qconv3d.kernel" if cuda else "qconv3d.plain"] != steps * len(cases)
+                or counts["qconv3d.quantize" if cuda else "qconv3d.quantize_plain"] != steps * quantizing
                 or counts["conv3d.kernel"] or counts["conv3d.library"] or counts["conv3d.plain"]
                 or res["conv_launches"]
             ):
-                raise AssertionError(f"int8 {name}: launches {counts} over {steps} tiles of {len(cases)} convs")
+                raise AssertionError(
+                    f"int8 {name}: launches {counts} over {steps} tiles of {len(cases)} convs, "
+                    f"{quantizing} of them quantizing"
+                )
             if stream:
                 plan = res["plan"]
                 columns, per_column = plan["columns"], plan["steps_per_column"]
@@ -4439,8 +4529,13 @@ def int8_phase(work: str, net_config: dict, params, seed: int, bf16: dict, devic
                     raise AssertionError(f"int8 {name}: K4 launches by conv {by_conv}, want {dict(want)}")
                 if stream:
                     t0 = time.perf_counter()
-                    new = check_qconv(seed, traced)
+                    new, _ = check_qconv(seed, traced, passes=False)
                     out["stream_check_seconds"] = time.perf_counter() - t0
+                    half = len(traced) // 2
+                    out["stream_step_ms"] = {
+                        step: {"int8_k4": sum(r["ms"] for r in part), "bf16": sum(r["library_ms"] for r in part)}
+                        for step, part in (("warm", new[:half]), ("steady", new[half:]))
+                    }
                     rows += new
                 else:
                     new = rows[: len(cases)]
@@ -4457,17 +4552,27 @@ def int8_phase(work: str, net_config: dict, params, seed: int, bf16: dict, devic
             out[name] = res
             if not (diff.mean() < INT8_MAX_MEAN and diff.max() <= INT8_MAX_DIFF):
                 raise AssertionError(f"int8 {name} predictions beyond the bounds of the bf16 ones: {res['vs_bf16']}")
+    if cuda:
+        out["launches"] = sum(out[n]["predict_launches"]["qconv3d.kernel"] for n in ("tiled", "stream"))
+        out["quantize_launches"] = sum(out[n]["predict_launches"]["qconv3d.quantize"] for n in ("tiled", "stream"))
+        if sum(r["launches"] for r in rows) != out["launches"]:
+            raise AssertionError("int8: K4's launches do not add up over its checked shapes")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, rows, pass_rows
+
+
+@contextlib.contextmanager
+def int8_flag():
+    """``BS_INT8=1`` inside, the caller's value after."""
+    saved = os.environ.get("BS_INT8")
+    os.environ["BS_INT8"] = "1"
+    try:
+        yield
     finally:
         if saved is None:
             os.environ.pop("BS_INT8", None)
         else:
             os.environ["BS_INT8"] = saved
-    if cuda:
-        out["launches"] = sum(out[n]["predict_launches"]["qconv3d.kernel"] for n in ("tiled", "stream"))
-        if sum(r["launches"] for r in rows) != out["launches"]:
-            raise AssertionError("int8: K4's launches do not add up over its checked shapes")
-    out["seconds"] = time.perf_counter() - t_phase
-    return out, rows
 
 
 def torch_cuda(device) -> bool:
@@ -4905,6 +5010,9 @@ def main(argv=None) -> int:
 
     emit({"phase": "reference", **check_reference(net_config, params, affs, args.seed)})
     emit({"phase": "tile_breakdown", **tile_breakdown(net_config, params, args.seed)})
+    # the same forward under BS_INT8=1: K4 and its passes in place of K1 and cuDNN
+    with int8_flag():
+        emit({"phase": "tile_breakdown_int8", **tile_breakdown(net_config, params, args.seed)})
     train, train_rows = train_phase(
         args.seed, net_config, TRAIN_VOLUME, TRAIN_ITERATIONS, OVERFIT_STEPS, TIMED_STEPS, TRAIN_PREDICT_ROI
     )
@@ -4975,7 +5083,9 @@ def main(argv=None) -> int:
     # int8 inference: K4 at every conv of a tile, then the tiled and the
     # streamed main path under BS_INT8=1 against their bf16 runs
     with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_int8_") as work:
-        int8, qconv_rows = int8_phase(work, net_config, params, args.seed, {"tiled": affs, "stream": stream_affs})
+        int8, qconv_rows, pass_rows = int8_phase(
+            work, net_config, params, args.seed, {"tiled": affs, "stream": stream_affs}
+        )
     del stream_affs
     emit({"phase": "int8", "nvidia_smi": smi, **int8})
     # SAM and proofreading through the command line, SAM card vs CPU, timings
@@ -5053,7 +5163,10 @@ def main(argv=None) -> int:
             **{k: top_qconv[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ms_of")},
             "at": top_qconv["shape"],
             "tile_ms": int8["tile_ms"],
+            "stream_step_ms": int8["stream_step_ms"],
+            "instantiations": qconv_instantiations,
             "shapes": qconv_rows,
+            "passes": pass_rows,
         },
     ]
     print(smi, flush=True)

@@ -112,21 +112,30 @@ def test_conv3d_kernel_matches_plain(cuda, x_shape, w_shape, dtype, crop, relu, 
 
 QCONV_CASES = [
     # (x shape, w shape, crop, output dtype): the int8 kernel (K4) at the
-    # convs of a 3d_affs tile with their channel counts, at few voxels
-    ((1, 8, 12, 12, 1), (3, 3, 3, 1, 12), None, BF16),  # enc0.c0: pitch 4
-    ((1, 6, 10, 10, 12), (3, 3, 3, 12, 12), None, BF16),  # enc0.c1
-    ((1, 8, 12, 12, 1), (1, 1, 1, 1, 12), (6, 8, 8), BF16),  # enc0.res
-    ((1, 6, 10, 10, 12), (3, 3, 3, 12, 60), None, BF16),  # enc1.c0
-    ((1, 6, 10, 10, 60), (3, 3, 3, 60, 60), None, BF16),  # pitch 64: 16-byte copies
-    ((1, 6, 12, 12, 60), (3, 3, 3, 60, 300), None, BF16),
-    ((1, 5, 9, 9, 300), (3, 3, 3, 300, 300), None, BF16),
-    ((1, 4, 6, 6, 300), (3, 3, 3, 300, 1500), None, BF16),
-    ((1, 4, 6, 6, 1500), (3, 3, 3, 1500, 1500), None, BF16),
+    # convs of a 3d_affs tile with their channel counts, at few voxels; the
+    # tile width follows Co: 9, 12 -> 16; 60 -> 64; 300 -> 2 x 160; 1500 -> 6 x 256;
+    # Ci up to 64 gathers 8 or 2 taps a K row, wider Ci comes by tensor map
+    ((1, 8, 12, 12, 1), (3, 3, 3, 1, 12), None, BF16),  # enc0.c0: Ci 1 at pitch 16
+    ((1, 6, 10, 10, 12), (3, 3, 3, 12, 12), None, BF16),  # enc0.c1: Ci 12
+    ((1, 8, 12, 12, 1), (1, 1, 1, 1, 12), (6, 8, 8), BF16),  # enc0.res: a crop of the s8 input
+    ((1, 6, 10, 10, 12), (3, 3, 3, 12, 60), None, BF16),  # enc1.c0: BN 64, one run per warpgroup
+    ((1, 6, 10, 10, 60), (3, 3, 3, 60, 60), None, F32),
+    ((1, 6, 12, 12, 60), (3, 3, 3, 60, 300), None, BF16),  # BN 160, 16-byte lines
+    ((1, 5, 9, 9, 300), (3, 3, 3, 300, 300), None, F32),
+    ((1, 4, 6, 6, 300), (3, 3, 3, 300, 1500), None, BF16),  # BN 256
+    ((1, 4, 6, 6, 1500), (3, 3, 3, 1500, 1500), None, BF16),  # a last chunk of 3 k32 steps
     ((1, 6, 10, 10, 300), (1, 1, 1, 300, 1500), (4, 8, 8), BF16),  # enc3.res
-    ((1, 5, 9, 9, 1500), (3, 3, 3, 1500, 300), None, BF16),  # dec2.c0 up part
-    ((1, 5, 9, 9, 12), (1, 1, 1, 12, 3), None, F32),  # a head, fp32 out
-    ((32, 1, 20, 20, 5), (1, 3, 3, 5, 12), None, BF16),  # a 2D net's first conv
+    ((1, 5, 9, 9, 1500), (3, 3, 3, 1500, 300), None, F32),  # dec2.c0 up part
+    ((1, 8, 12, 12, 1500), (1, 1, 1, 1500, 300), (4, 6, 8), BF16),  # dec2.res up part
+    ((1, 5, 9, 9, 12), (1, 1, 1, 12, 9), None, F32),  # a head: Co 9, fp32 out
+    ((32, 1, 20, 20, 5), (1, 3, 3, 5, 12), None, BF16),  # a 2D net's first conv, batch 32
     ((2, 5, 40, 37, 60), (3, 3, 3, 60, 12), None, F32),  # many ragged M tiles
+    # ragged Co: 70 on 2 x 64 with a voxel pitch off 16 bytes (single
+    # values); Ci 130: a last chunk of one k32 step
+    ((1, 5, 13, 11, 130), (3, 3, 3, 130, 70), None, BF16),
+    ((1, 7, 9, 9, 300), (1, 1, 1, 300, 81), (3, 5, 5), F32),  # Co 81 on 2 x 64, a crop
+    # Ci 40: a pitch of 48 in a K pitch of 64 (2 taps a row, zeros between)
+    ((1, 6, 10, 10, 40), (3, 3, 3, 40, 24), None, BF16),
 ]
 
 
@@ -134,21 +143,66 @@ QCONV_CASES = [
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("x_shape,w_shape,crop,out_dtype", QCONV_CASES)
 def test_qconv_kernel_matches_plain(cuda, x_shape, w_shape, crop, out_dtype, relu):
-    """K4 (amax, quantization, s8 conv) against ``qconv_plain``, whose sums
-    are exact: the same fp32 rescale, so at most one ulp of the output type
-    apart (a crop takes its scale from the uncropped input)."""
+    """K4 (amax, quantization, s8 wgmma conv) against ``qconv_plain``, whose
+    sums are exact: the same fp32 rescale, so at most one ulp of the output
+    type apart.  A crop reads the centre of the s8 tensor quantized whole
+    (a strided view with the shared scale), as a conv pass's residual does,
+    and equals the crop quantized on its own with the whole's scale."""
     x, w, b = _conv_inputs(cuda, x_shape, w_shape, BF16, None, "lines")
     xc = x if crop is None else center_crop(x, crop)
     qw = Q.pack_qweights(w.float())
-    before = Q.COUNTS["kernel"]
-    got = Q.qconv(xc, w, b, relu=relu, out_dtype=out_dtype, qw=qw, scale_of=x).float()
+    before = dict(Q.COUNTS)
+    q = Q.quantize_input(x)
+    got = Q.qconv_quantized(q if crop is None else q.cropped(crop), qw, b, relu=relu, out_dtype=out_dtype)
+    one = Q.qconv_quantized(Q.quantize_pass_cuda(xc, Q.amax_cuda(x)), qw, b, relu=relu, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert Q.COUNTS["kernel"] == before + 1
+    assert Q.COUNTS["kernel"] == before["kernel"] + 2 and Q.COUNTS["quantize"] == before["quantize"] + 1
+    assert got.dtype == out_dtype and torch.equal(got, one)
     ref = Q.qconv_plain(xc, w, b, relu=relu, out_dtype=out_dtype, qw=qw, sx=Q.activation_scale(x)).float()
+    got = got.float()
     ulp = torch.finfo(out_dtype).eps * torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))))
     assert bool(((got - ref).abs() <= ulp).all()), float((got - ref).abs().max())
-    xq, _ = Q.quantize(xc, Q.activation_scale(x))
-    assert int(xq.abs().max()) <= 127
+
+
+QUANTIZE_CASES = [
+    # (shape, dtype, layout, crop): what the load width follows
+    ((1, 9, 20, 20, 1), BF16, "dense", None),  # 2-byte voxels: single loads
+    ((1, 6, 14, 14, 12), BF16, "dense", None),  # 24-byte voxels: 8-byte loads
+    ((1, 6, 14, 14, 60), BF16, "dense", (4, 10, 12)),  # 120-byte voxels, a crop
+    ((1, 5, 12, 12, 300), BF16, "lines", (3, 8, 8)),  # padded to 16-byte lines
+    ((2, 4, 9, 11, 1500), BF16, "lines", None),  # a last group of 12 channels
+    ((1, 5, 9, 9, 9), F32, "dense", None),  # 36-byte voxels: single loads
+    ((1, 5, 9, 9, 12), F32, "dense", (3, 5, 7)),  # 48-byte voxels: 16-byte loads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,layout,crop", QUANTIZE_CASES)
+def test_amax_pass_matches_plain(cuda, shape, dtype, layout, crop):
+    """The amax pass: the bits of ``max |x|`` over a strided view, equal to
+    PyTorch's amax."""
+    x, _, _ = _conv_inputs(cuda, shape, (1, 1, 1, shape[-1], 1), dtype, crop, layout)
+    amax = Q.amax_cuda(x)
+    torch.cuda.synchronize()
+    assert int(amax) == int(x.abs().amax().float().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,layout,crop", QUANTIZE_CASES)
+def test_quantize_pass_matches_plain(cuda, shape, dtype, layout, crop):
+    """The quantization pass against ``quantize`` bit for bit, with the
+    scale of the tensor the view is a crop of: the s8 view of a buffer at
+    the channel pitch, zeros past Ci."""
+    x, _, _ = _conv_inputs(cuda, shape, (1, 1, 1, shape[-1], 1), dtype, None, layout)
+    xc = x if crop is None else center_crop(x, crop)
+    q = Q.quantize_pass_cuda(xc, Q.amax_cuda(x))
+    torch.cuda.synchronize()
+    want, sx = Q.quantize(xc, Q.activation_scale(x))
+    assert float(q.sx) == float(sx) and q.dtype == dtype
+    assert torch.equal(q.xq, want)
+    buf = q.xq._base
+    assert buf.shape[-1] == Q.channel_pitch(shape[-1]) and buf.is_contiguous()
+    assert int(buf[..., shape[-1]:].abs().sum()) == 0
 
 
 @pytest.mark.cuda

@@ -110,17 +110,51 @@ def test_qconv_matches_jax(name):
         np.testing.assert_allclose(got[0, 0, 0, 0], [100.0 * 54, 0.01 * 54], rtol=0.02)
 
 
-@pytest.mark.parametrize("ci,cp,vec,kp", [(60, 64, 16, 1728), (12, 12, 4, 384), (1, 4, 4, 128)])
-def test_packed_weights_hold_each_tap_at_the_channel_pitch(ci, cp, vec, kp):
-    """The kernel's layout: ``k = tap * Cp + c``, zero past Ci in each tap
-    and past the taps, K padded to the chunk; the copy width follows Ci."""
-    w = torch.from_numpy(np.random.default_rng(1).normal(size=(3, 3, 3, ci, 7)).astype(np.float32))
+@pytest.mark.parametrize(
+    "ci,co,cp,kp",
+    [(1, 7, 16, 16), (12, 7, 16, 16), (40, 9, 48, 64), (60, 7, 64, 64), (130, 16, 144, 256), (300, 9, 304, 384)],
+)
+def test_packed_weights_hold_each_tap_at_the_channel_pitch(ci, co, cp, kp):
+    """The kernel's layout: K is ``tap * kp + c`` (8, 4 or 2 taps to a
+    128-byte row up to a pitch of 64, else whole 128-channel chunks a tap),
+    padded to 128; each 128-byte K chunk a block of Co padded to 8 rows of
+    128 s8, K-major under the 128-byte swizzle (16-byte group g of row r at
+    g ^ r % 8), zero past Ci and Co; the activations' pitch is Ci rounded up
+    to 16."""
+    w = torch.from_numpy(np.random.default_rng(1).normal(size=(3, 3, 3, ci, co)).astype(np.float32))
     qw = Q.pack_qweights(w)
-    assert (qw.cp, qw.vec) == (cp, vec) == Q.channel_pitch(ci)
-    assert qw.data.shape == (7, kp) and kp % Q.BK == 0
-    taps = qw.data[:, : 27 * cp].reshape(7, 27, cp)
-    np.testing.assert_array_equal(taps[:, :, :ci].permute(1, 2, 0).numpy(), qw.wq.reshape(27, ci, 7).numpy())
-    assert int(taps[:, :, ci:].abs().sum()) == 0 and int(qw.data[:, 27 * cp :].abs().sum()) == 0
+    co8, chunks = -(-co // 8) * 8, -(-27 * kp // Q.CHUNK)
+    assert (qw.cp, qw.kp) == (cp, kp) == (Q.channel_pitch(ci), Q.k_pitch(ci))
+    assert qw.data.shape == (chunks, co8 // 8, 8, 8, 16) and qw.data.dtype == torch.int8
+    np.testing.assert_array_equal(Q.unpack_qweights(qw).numpy(), qw.wq.numpy())
+    # one element by hand: tap 5, channel c, output channel n
+    c, n = ci - 1, co - 1
+    k = 5 * kp + c
+    row, group = n % 8, (k % Q.CHUNK) // 16
+    byte = qw.data[k // Q.CHUNK, n // 8, row].reshape(Q.ROW_BYTES)[16 * (group ^ row) + k % 16]
+    assert int(byte) == int(qw.wq.reshape(27, ci, co)[5, c, n])
+    rows = Q._swizzle(qw.data).permute(0, 3, 4, 1, 2).reshape(chunks * Q.CHUNK, co8)
+    taps = rows[: 27 * kp].reshape(27, kp, co8)
+    assert int(taps[:, ci:].abs().sum()) == 0 and int(rows[27 * kp :].abs().sum()) == 0
+    assert int(rows[:, co:].abs().sum()) == 0
+
+
+def test_generated_s8_wgmma_header_is_current():
+    """``wgmma_s8_sm90.cuh`` is what ``gen_wgmma.py`` writes, for exactly the
+    tile widths the int8 kernel plans with, and the kernel includes it."""
+    import importlib.util
+    import os
+
+    from bootstrapper_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location("gen_wgmma", os.path.join(_build.CSRC, "gen_wgmma.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert tuple(gen.S8_WIDTHS) == tuple(Q.TILE_WIDTHS)
+    with open(os.path.join(_build.CSRC, "wgmma_s8_sm90.cuh")) as f:
+        assert f.read() == gen.render_s8()
+    assert all(f"m64n{n}k32.s32.s8.s8" in gen.render_s8() for n in gen.S8_WIDTHS)
+    assert sorted(os.path.basename(f) for f in _build.source_files("qconv3d")) == ["qconv3d.cu", "wgmma_s8_sm90.cuh"]
 
 
 def _conv(kernel, ci, co, rng):
@@ -182,8 +216,114 @@ def test_residual_takes_its_scale_before_the_crop(int8):
     crop = [U.center_crop(torch.from_numpy(x), got.shape[1:4]) for x in xs]
     with torch.no_grad():
         wrong = U.conv_split(crop, cp.residual).numpy()
-        right = U.conv_split(crop, cp.residual, scale_of=[torch.from_numpy(x) for x in xs]).numpy()
+        right = U.conv_split([Q.quantize_input(torch.from_numpy(x)).cropped(got.shape[1:4]) for x in xs],
+                             cp.residual).numpy()
     assert np.abs(wrong - right).max() > 1e-3
+
+
+@pytest.mark.parametrize("n_layers", [1, 2])
+def test_conv_pass_quantizes_each_part_once(int8, n_layers):
+    """A conv pass over two concat parts quantizes each part once: its first
+    conv reads the s8 parts, its 1x1 residual their centre crops (the same
+    scales), and each later conv its own input; against JAX
+    ``conv_pass_apply``, which quantizes the parts for both convs."""
+    rng = np.random.default_rng(4)
+    xs = [rng.normal(size=(1, 7, 9, 9, 3)).astype(np.float32), rng.normal(size=(1, 7, 9, 9, 2)).astype(np.float32)]
+    xs[0][0, 0, 0, 0, 0] = 30.0  # the largest values lie outside the crop
+    xs[1][0, -1, -1, -1, 1] = -20.0
+    kernels = [(3, 3, 3)] * n_layers
+    cp = U.ConvPass(5, 4, kernels, parts=(3, 2))
+    with torch.no_grad():
+        for conv in [*cp.layers, cp.residual]:
+            src = _conv(tuple(conv.w.shape[:3]), conv.w.shape[3], conv.w.shape[4], rng)
+            conv.w.copy_(src.w)
+            conv.b.copy_(src.b)
+    params = {
+        "layers": [dict(zip("wb", _jax_params(c))) for c in cp.layers],
+        "residual": dict(zip("wb", _jax_params(cp.residual))),
+    }
+    ref = np.asarray(JU.conv_pass_apply(params, [jnp.asarray(x) for x in xs], kernels, compute_dtype=jnp.float32))
+    before = dict(Q.COUNTS)
+    with torch.no_grad():
+        got = cp([torch.from_numpy(x) for x in xs]).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+    assert Q.COUNTS["quantize_plain"] - before["quantize_plain"] == len(xs) + n_layers - 1
+    assert Q.COUNTS["plain"] - before["plain"] == 2 * len(xs) + n_layers - 1
+
+
+def _fp32_slices(model, nc):
+    """Every conv's fp32 weights and the input-channel slices the U-Net cuts
+    them into (a decoder pass's first conv and residual read its skip and
+    its upsampled input), by module name."""
+    nf, inc = nc["num_fmaps"], nc["fmap_inc_factor"]
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, U.Conv):
+            ci = m.w.shape[3]
+            parts = name.split(".")
+            if "r_conv" in parts and (parts[-1] == "residual" or parts[-2:] == ["layers", "0"]):
+                skip = nf * inc ** int(parts[parts.index("r_conv") + 2])
+                slices = [(0, skip), (skip, ci)]
+            else:
+                slices = [(0, ci)]
+            out[name] = (m.w.detach().clone().numpy(), slices)
+    return out
+
+
+def _assert_int8_weights_from_fp32(model, want):
+    """Each conv's int8 weights and scales, bit for bit, as JAX ``qconv``
+    quantizes the fp32 parameters."""
+    convs = dict(model.named_modules())
+    for name, (wf, slices) in want.items():
+        for lo, hi in slices:
+            qw = convs[name].packed(torch.int8, lo, hi)
+            part = jnp.asarray(wf[..., lo:hi, :])
+            sw = jnp.maximum(jnp.max(jnp.abs(part), axis=(0, 1, 2, 3)), 1e-30) / 127.0
+            wq = jnp.clip(jnp.round(part / sw), -127, 127).astype(jnp.int8)
+            np.testing.assert_array_equal(qw.sw.cpu().numpy(), np.asarray(sw), err_msg=f"{name}[{lo}:{hi}]")
+            np.testing.assert_array_equal(qw.wq.cpu().numpy(), np.asarray(wq), err_msg=f"{name}[{lo}:{hi}]")
+
+
+def test_int8_weights_come_from_the_fp32_parameters(monkeypatch):
+    """A predictor casts its model to bf16 (``Lane``, ``Model.replicate``);
+    under ``BS_INT8=1`` the int8 weights and per-channel scales are still
+    the JAX package's quantization of the fp32 parameters, bit for bit (the
+    amax of the bf16-rounded weights would move nearly every scale), made
+    before the cast, and a forward packs nothing."""
+    from bootstrapper_torch.predict._pipeline import Lane
+
+    nc = _net_config()
+    params = init_params_numpy(nc, 0)
+    monkeypatch.setenv("BS_INT8", "1")
+    cpu = torch.device("cpu")
+    model = load_params(Model(nc), params)
+    want = _fp32_slices(model, nc)
+    replica = Lane(model, cpu, torch.bfloat16).model  # Model.replicate from fp32
+    lane = Lane.adopt(model, cpu, torch.bfloat16)  # the model itself, cast
+    again = Lane(lane.model, cpu, torch.bfloat16).model  # a replica of a cast model
+    for m in (replica, lane.model, again):
+        assert all(c.w.dtype == torch.bfloat16 for c in m.modules() if isinstance(c, U.Conv))
+        _assert_int8_weights_from_fp32(m, want)
+    x = torch.from_numpy(np.random.default_rng(5).random((1, *nc["input_shape"], 1), np.float32))
+    before = Q.COUNTS["pack"]
+    with torch.no_grad():
+        out = lane.model(x)["3d_affs"]
+    assert Q.COUNTS["pack"] == before and bool(torch.isfinite(out).all())
+
+
+def test_int8_after_the_cast_raises(monkeypatch):
+    """``BS_INT8=1`` set after a predictor cast the model to bf16: its fp32
+    parameters are gone, so a forward refuses rather than quantize the
+    bf16 weights."""
+    from bootstrapper_torch.predict._pipeline import Lane
+
+    nc = _net_config()
+    monkeypatch.delenv("BS_INT8", raising=False)
+    lane = Lane.adopt(load_params(Model(nc), init_params_numpy(nc, 0)), torch.device("cpu"), torch.bfloat16)
+    monkeypatch.setenv("BS_INT8", "1")
+    x = torch.zeros((1, *nc["input_shape"], 1))
+    with torch.no_grad(), pytest.raises(RuntimeError, match="fp32 parameters"):
+        lane.model(x)
 
 
 def _unet_cfg():
