@@ -9,14 +9,17 @@ over the module tree
     unet.l_conv.{level}.conv_pass.{j}.weight   (convs at Sequential
     unet.l_conv.{level}.residual.0.weight       indices 0, 2, ...)
     unet.r_conv.{head}.{level}.conv_pass.{j}.weight
+    unet.r_up.{head}.{level}.up.weight          (transposed upsampling)
     {lsd,aff,affs,lsds}_head.conv_pass.0.weight / .residual.0.weight
 
 Torch conv weights are (O, I, *K); the JAX layout is channels-last
 (*K, I, O).  The result is the JAX package's params tree, written as a
 ``model_checkpoint_*`` npz that both packages load (the port through
-``models.weights.params_from_jax``).  The port's ``Model`` has one decoder
-and resize upsampling (a ``constant_upsample = false`` setup raises when
-the model is built), so there are no ``r_up`` parameters to convert.
+``models.weights.params_from_jax``).  The port's ``Model`` has one decoder.
+A ``constant_upsample = false`` setup's transposed-conv weights are torch
+``ConvTranspose`` (I, O, *K): they go to (*K, I, O) with every kernel axis
+reversed (``_to_jax_conv_transpose``); a resize-upsample setup has no
+``r_up`` parameters.
 """
 
 from __future__ import annotations
@@ -34,6 +37,15 @@ def _to_jax_conv(w: np.ndarray) -> np.ndarray:
     # (O, I, *K) -> (*K, I, O)
     dims = w.ndim - 2
     return np.transpose(w, tuple(range(2, 2 + dims)) + (1, 0))
+
+
+def _to_jax_conv_transpose(w: np.ndarray) -> np.ndarray:
+    # torch ConvTranspose (I, O, *K) -> (*K, I, O) with every kernel axis
+    # reversed: ``lax.conv_transpose(transpose_kernel=False)``, which the
+    # JAX layout feeds, reads output offset j from w[k-1-j]; torch from w[j]
+    dims = w.ndim - 2
+    w = np.transpose(w, tuple(range(2, 2 + dims)) + (0, 1))
+    return w[tuple(slice(None, None, -1) for _ in range(dims))]
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
@@ -63,13 +75,13 @@ def torch_to_params(state: Dict[str, np.ndarray], model: Model) -> dict:
     cfg = model.unet_config
     missing = []
 
-    def conv(prefix: str, seq_idx: int):
-        wk = f"{prefix}.{seq_idx}.weight"
-        bk = f"{prefix}.{seq_idx}.bias"
+    def conv(prefix: str, seq_idx=None, layout=_to_jax_conv):
+        key = prefix if seq_idx is None else f"{prefix}.{seq_idx}"
+        wk, bk = f"{key}.weight", f"{key}.bias"
         if wk not in state:
             missing.append(wk)
             return None
-        w = _to_jax_conv(state[wk]).astype(np.float32)
+        w = layout(state[wk]).astype(np.float32)
         if bk in state:
             b = state[bk].astype(np.float32)
         else:
@@ -94,7 +106,10 @@ def torch_to_params(state: Dict[str, np.ndarray], model: Model) -> dict:
     for h in range(1):  # the port's U-Net has one decoder
         ups, convs = [], []
         for level in range(cfg.num_levels - 1):
-            ups.append({})
+            if cfg.constant_upsample:
+                ups.append({})
+            else:
+                ups.append(conv(f"unet.r_up.{h}.{level}.up", layout=_to_jax_conv_transpose))
             convs.append(
                 conv_pass(
                     f"unet.r_conv.{h}.{level}",

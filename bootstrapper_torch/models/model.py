@@ -41,8 +41,6 @@ def unet_config(net_config: dict) -> UNetConfig:
         in_channels = sum(i["dims"] for i in nc["inputs"].values())
     elif "adj_slices" in nc:
         in_channels = in_channels * nc["adj_slices"]
-    if not nc.get("constant_upsample", True):
-        raise NotImplementedError("transposed-conv upsampling is not ported yet")
     return UNetConfig(
         in_channels=in_channels,
         num_fmaps=nc["num_fmaps"],
@@ -51,6 +49,7 @@ def unet_config(net_config: dict) -> UNetConfig:
         kernel_size_down=nc["kernel_size_down"],
         kernel_size_up=nc["kernel_size_up"],
         num_fmaps_out=nc.get("num_fmaps_out"),
+        constant_upsample=nc.get("constant_upsample", True),
     )
 
 

@@ -16,9 +16,11 @@ linear resize.
   of the input, centre-cropped and added, then the final activation.
 - The decoder's skip concat is implicit: each conv over ``[skip, up]`` is
   a sum of per-part convs with channel-split weights (``conv_split``).
-- Max-pool down; trilinear upsample with ``align_corners=False`` (equal
-  to ``jax.image.resize`` linear); ``crop_to_factor`` keeps the valid
-  convs translation-equivariant at the upsample stride.
+- Max-pool down; up by trilinear resampling with ``align_corners=False``
+  (equal to ``jax.image.resize`` linear, ``constant_upsample``) or by a
+  transposed conv whose kernel is its stride (``upsample_transposed``,
+  the ``r_up`` parameters); ``crop_to_factor`` keeps the valid convs
+  translation-equivariant at the upsample stride.
 - ReLU between convs; one decoder (``num_heads`` 1), as every shipped
   setup has.
 
@@ -28,7 +30,8 @@ grad enabled the kernel route is ``ops.conv3d.Conv3dFunction``, so the net
 trains with fp32 parameters and convs in the model's ``compute_dtype``.
 Under ``BS_INT8=1`` with grad disabled every conv, of every shape, goes
 through ``ops.quant`` instead, each part of a channel concat quantized on
-its own, as the JAX package's graph quantizes them; a conv pass quantizes
+its own, as the JAX package's graph quantizes them (a transposed upsample
+is no conv there and stays in the compute dtype); a conv pass quantizes
 each input part once, and its 1x1 residual reads the centre crop of the s8
 tensor its first conv read (the scale of the uncropped input, as the JAX
 package's residual takes it).  The int8 weights come from the fp32
@@ -48,7 +51,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import quant
-from ..ops.conv3d import conv3d, pack_weights, to_channels_last
+from ..ops.conv3d import conv3d, empty_channels_last, pack_weights, to_channels_last
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +63,7 @@ class UNetConfig:
     kernel_size_down: tuple  # per level: (kernel, ...)
     kernel_size_up: tuple  # per level below top: (kernel, ...)
     num_fmaps_out: Optional[int] = None
+    constant_upsample: bool = True
 
     def __post_init__(self):
         object.__setattr__(
@@ -314,6 +318,28 @@ def upsample_resize(x, factors: Sequence[int]):
     return to_channels_last(y)
 
 
+def upsample_transposed(x, w, b, factors: Sequence[int]):
+    """The JAX package's ``upsample_transposed``: ``lax.conv_transpose``
+    with a kernel equal to its stride and VALID padding, on channels-last
+    ``x`` and a ``(*factors, Ci, Co)`` weight in the JAX layout.  Its
+    windows do not overlap, so it is one product ``(N*D*H*W, Ci) @ (Ci,
+    prod(factors)*Co)`` in ``x``'s dtype (fp32 accumulation, one rounding),
+    the bias added in that dtype, as XLA adds it, then a depth-to-space.
+    ``lax.conv_transpose`` gives output offset ``j`` the weight
+    ``w[f-1-j]``: every kernel axis is read reversed."""
+    n, d, h, wd, ci = x.shape
+    fd, fh, fw = factors
+    co = w.shape[-1]
+    wt = torch.flip(w, (0, 1, 2)).permute(3, 0, 1, 2, 4).reshape(ci, fd * fh * fw * co).to(x.dtype)
+    y = torch.matmul(x.reshape(n * d * h * wd, ci), wt)
+    # the bias on the rounded product, before the blocks move: the same sums
+    y = y.view(-1, co).add_(b.to(x.dtype))
+    out = empty_channels_last((n, d * fd, h * fh, wd * fw, co), x.dtype, x.device)
+    # one copy into the kernel's layout, each (fd, fh, fw) block in place
+    out.view(n, d, fd, h, fh, wd, fw, co).copy_(y.view(n, d, h, wd, fd, fh, fw, co).permute(0, 1, 4, 2, 5, 3, 6, 7))
+    return out
+
+
 def crop_to_factor(x, factor, kernel_sizes):
     """Crop so (spatial - conv_crop) is a multiple of ``factor``."""
     dims = len(factor)
@@ -331,9 +357,25 @@ def crop_to_factor(x, factor, kernel_sizes):
     return x
 
 
+class Upsample(nn.Module):
+    """A transposed upsample's parameters: ``w`` ``(*factor, ch, ch)``,
+    ``b`` ``(ch,)``, in the JAX layout (``r_up[head][level]``)."""
+
+    def __init__(self, factor: Sequence[int], ch: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(*factor, ch, ch))
+        self.b = nn.Parameter(torch.zeros(ch))
+        self.factor = tuple(factor)
+
+    def forward(self, x):
+        return upsample_transposed(x, self.w, self.b, self.factor)
+
+
 class UNet(nn.Module):
-    """ReLU U-Net with constant (trilinear) upsampling and one decoder.  A
-    2D config is lifted (``lift_2d_config``): ``cfg`` is then the 3D one."""
+    """ReLU U-Net with one decoder, upsampling by trilinear resampling
+    (``constant_upsample``) or by transposed convs (the ``r_up``
+    parameters, one ``Upsample`` per level below the top).  A 2D config is
+    lifted (``lift_2d_config``): ``cfg`` is then the 3D one."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -367,6 +409,20 @@ class UNet(nn.Module):
                 )
             ]
         )
+        if not cfg.constant_upsample:
+            self.r_up = nn.ModuleList(
+                [
+                    nn.ModuleList(
+                        Upsample(cfg.downsample_factors[level], nf * inc ** (level + 1)) for level in range(n - 1)
+                    )
+                ]
+            )
+
+    def upsample(self, g, i):
+        """Decoder level ``i``'s upsample of the lower level's output."""
+        if self.cfg.constant_upsample:
+            return upsample_resize(g, self.cfg.downsample_factors[i])
+        return self.r_up[0][i](g)
 
     def forward(self, x):
         """x: (N, D, H, W, C) -> the decoder's output features."""
@@ -379,8 +435,7 @@ class UNet(nn.Module):
         if level == 0:
             return f_left
         g = self._rec(level - 1, max_pool(f_left, cfg.downsample_factors[i]))
-        g_up = upsample_resize(g, cfg.downsample_factors[i])
-        g_up = crop_to_factor(g_up, cfg.crop_factors[i], cfg.kernel_size_up[i])
+        g_up = crop_to_factor(self.upsample(g, i), cfg.crop_factors[i], cfg.kernel_size_up[i])
         f_crop = center_crop(f_left, g_up.shape[1:-1])
         return self.r_conv[0][i]([f_crop, g_up])
 

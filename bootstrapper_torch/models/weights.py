@@ -5,8 +5,9 @@ DHWIO, biases), saved as ``model_checkpoint_<step>`` npz files with
 ``params/<path>`` keys.  The port's modules keep the same layouts, so
 ``params_from_jax`` is a pure renaming: ``unet/l_conv/0/layers/0/w`` ->
 ``unet.l_conv.0.layers.0.w`` and ``head_<name>/...`` ->
-``heads.<name>....``.  Folded-weight caches (``_pf*`` entries) and the
-empty upsample entries of constant-upsample nets carry no parameters.
+``heads.<name>....``; a transposed-upsample net's ``unet/r_up/0/<level>/w``
+is ``unet.r_up.0.<level>.w``.  Folded-weight caches (``_pf*`` entries) and
+the empty upsample entries of constant-upsample nets carry no parameters.
 A 2D setup's JAX conv weights are HWIO; the port's lifted net
 (``unet.lift_2d_config``) keeps them with a unit z axis, inserted on the
 way in and squeezed out on the way out (``to_port_layout`` /
@@ -175,24 +176,23 @@ def init_params_numpy(net_config: dict, seed: int = 0) -> dict:
         )
         for level in range(n)
     ]
-    r_conv = [
-        _conv_pass_init(
-            rng,
-            nf * inc**level + nf * inc ** (level + 1),
-            cfg.num_fmaps_out
-            if cfg.num_fmaps_out is not None and level == 0
-            else nf * inc**level,
-            cfg.kernel_size_up[level],
+    # per decoder level, its upsample's parameters (a transposed-upsample
+    # net) and then its conv pass, in the JAX package's order of draws
+    r_up, r_conv = [], []
+    for level in range(n - 1):
+        ch = nf * inc ** (level + 1)
+        r_up.append({} if cfg.constant_upsample else _conv_init(rng, cfg.downsample_factors[level], ch, ch))
+        r_conv.append(
+            _conv_pass_init(
+                rng,
+                nf * inc**level + ch,
+                cfg.num_fmaps_out
+                if cfg.num_fmaps_out is not None and level == 0
+                else nf * inc**level,
+                cfg.kernel_size_up[level],
+            )
         )
-        for level in range(n - 1)
-    ]
-    params = {
-        "unet": {
-            "l_conv": l_conv,
-            "r_up": [[{} for _ in range(n - 1)]],  # one decoder
-            "r_conv": [r_conv],
-        }
-    }
+    params = {"unet": {"l_conv": l_conv, "r_up": [r_up], "r_conv": [r_conv]}}  # one decoder
     for name, out in net_config["outputs"].items():
         params[f"head_{name}"] = _conv_pass_init(
             rng, cfg.out_channels, head_dims(out), [(1,) * cfg.dims]

@@ -38,9 +38,10 @@ from .unet import UNet, UNetConfig, center_crop, crop_to_factor, max_pool, upsam
 
 
 def stream_eligible(cfg: UNetConfig) -> bool:
-    """z streaming applies to 3D nets that never pool z (the port's nets
-    are valid-padded with constant upsampling throughout)."""
-    return cfg.dims == 3 and all(f[0] == 1 for f in cfg.downsample_factors)
+    """z streaming applies to 3D nets that never pool z and upsample by
+    resampling (the step runs ``upsample_resize``); a transposed-upsample
+    net is predicted tiled, as the JAX package declines it too."""
+    return cfg.dims == 3 and cfg.constant_upsample and all(f[0] == 1 for f in cfg.downsample_factors)
 
 
 def _dz(kernels) -> int:

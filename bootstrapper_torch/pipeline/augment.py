@@ -1,6 +1,8 @@
 """Device-side augmentations on tensors: the augments of the JAX package's
-``pipeline/augment.py`` that the training transform reaches (the
-per-section shift only for 2D setups).
+``pipeline/augment.py``.  The training transform reaches the geometric,
+intensity and defect ones (the per-section shift only for 2D setups); the
+fold, CLAHE and label ops (``create_mask``, ``random_grow_boundary``,
+``expand_labels``) are there for callers that compose their own.
 
 Each augment is a *draw* and an *apply*:
 
@@ -28,6 +30,8 @@ import itertools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops.affinities import _shifted, grow_boundary
 
 
 class Generators:
@@ -472,3 +476,177 @@ def defect_augment(
         missing_fill=missing_fill,
     )
 
+
+# ---------------------------------------------------------------------------
+# fold and CLAHE
+# ---------------------------------------------------------------------------
+
+
+def draw_fold(gen: Generators, n_sections: int, prob=0.03, max_strength=6.0) -> dict:
+    """Per section: whether it folds, the fold line's angle and offset, and
+    the pull's strength."""
+    return {
+        "do": [gen.coin(prob) for _ in range(n_sections)],
+        "angle": gen.uniform(0.0, np.pi, n_sections),
+        "offset": gen.uniform(0.25, 0.75, n_sections),
+        "strength": gen.uniform(1.0, max_strength, n_sections),
+    }
+
+
+def apply_fold(raw, do, angle, offset, strength, width=8.0):
+    """Pull the pixels of each section where ``do`` toward the line through
+    ``(offset * H, offset * W)`` at ``angle``: a displacement of ``strength``
+    along the line's normal, decaying as ``exp(-|d| / width)`` with the
+    signed distance ``d``, resampled linearly with clamped corners
+    (``map_coordinates(order=1, mode="nearest")``); fp32, in the JAX
+    function's order of operations.  Only the sections hit are touched."""
+    _, h, w = raw.shape
+    moved = [z for z, hit in enumerate(do) if hit]
+    if not moved:
+        return raw
+    yy, xx = _grids((h, w), raw.device)
+    # the same fp32 values on every device: the line's normal from the host,
+    # and the decay's exp in float64 rounded to fp32 (a device's fp32 sine or
+    # exp may be an ulp or two off, which moves a source coordinate by an
+    # ulp of the section's size, 3e-5 voxel at 320)
+    a = torch.tensor([angle[z] for z in moved], dtype=torch.float32)
+    params = torch.stack([torch.sin(a), torch.cos(a), torch.tensor([offset[z] for z in moved]),
+                          torch.tensor([strength[z] for z in moved])], 1)
+    params = host_to(params.tolist(), raw.device)
+    out = raw.clone()
+    for (n_y, n_x, off, st), z in zip(params, moved):
+        d = (yy - off * h) * n_y + (xx - off * w) * n_x
+        disp = st * torch.sign(d) * torch.exp((-torch.abs(d) / width).double()).float()
+        out[z] = map_linear_nearest(raw[z], [yy + disp * n_y, xx + disp * n_x])
+    return out
+
+
+def fold_augment(gen: Generators, raw, prob=0.03, max_strength=6.0, width=8.0):
+    """Per-section fold-line deformation (DefectAugment's deform mode): with
+    probability ``prob`` a section's pixels are pulled toward a random line,
+    as a physical fold in the section pulls them."""
+    return apply_fold(raw, **draw_fold(gen, raw.shape[0], prob, max_strength), width=width)
+
+
+def draw_clahe(gen: Generators, n_sections: int, clip_range=(0.6, 1.0)) -> dict:
+    """Per section: the clip limit's factor."""
+    return {"clip": gen.uniform(clip_range[0], clip_range[1], n_sections)}
+
+
+def _histogram(x, nbins: int):
+    """``jnp.histogram(x[z], bins=linspace(0, 1, nbins + 1))`` of every row
+    ``x[z]`` as fp32 counts ``(Z, nbins)``: bins closed on the left, the last
+    also on the right, values outside ``[0, 1]`` dropped.  The edges are
+    ``i / nbins`` in fp32, as ``jnp.linspace`` makes them."""
+    z = x.shape[0]
+    edges = torch.arange(nbins + 1, dtype=torch.float32, device=x.device) / nbins
+    idx = torch.bucketize(x, edges, right=True)
+    idx = torch.where(x == edges[-1], nbins, idx)
+    # index 0 (below the first edge) and nbins + 1 (past the last) drop out
+    rows = torch.arange(z, device=x.device)[:, None] * (nbins + 2)
+    counts = torch.bincount((idx + rows).reshape(-1), minlength=z * (nbins + 2))
+    return counts.reshape(z, nbins + 2)[:, 1 : nbins + 1].to(torch.float32)
+
+
+def apply_clahe(raw, clip, nbins=128, signal_min=0.05):
+    """Per-section global equalisation with a clipped histogram: the
+    section's normalised histogram is clipped at ``clip`` times its peak,
+    the excess spread evenly over the bins, and each value mapped through
+    the normalised cumulative sum at bin ``int(value * (nbins - 1))``; a
+    section whose mean is ``signal_min`` or less is left as it is."""
+    z = raw.shape[0]
+    flat = raw.reshape(z, -1)
+    hist = _histogram(flat, nbins)
+    hist = hist / torch.clamp(hist.sum(1, keepdim=True), min=1.0)
+    limit = host_to(list(clip), raw.device)[:, None] * hist.amax(1, keepdim=True)
+    excess = torch.clamp(hist - limit, min=0.0).sum(1, keepdim=True)
+    hist = torch.minimum(hist, limit) + excess / nbins
+    cdf = torch.cumsum(hist, 1)
+    cdf = cdf / torch.clamp(cdf[:, -1:], min=1e-6)
+    bins = torch.clamp((flat * (nbins - 1)).to(torch.int32), 0, nbins - 1).to(torch.int64)
+    out = torch.gather(cdf, 1, bins)
+    keep = flat.mean(1, keepdim=True) > signal_min
+    return torch.where(keep, out, flat).reshape(raw.shape)
+
+
+def clahe_augment(gen: Generators, raw, clip_range=(0.6, 1.0), nbins=128, signal_min=0.05):
+    """Per-section clipped histogram equalisation with a random clip limit
+    (ClaheAugment's capability; global per section, not tiled)."""
+    return apply_clahe(raw, **draw_clahe(gen, raw.shape[0], clip_range), nbins=nbins, signal_min=signal_min)
+
+
+# ---------------------------------------------------------------------------
+# label-side
+# ---------------------------------------------------------------------------
+
+
+def create_mask(labels, dtype=torch.uint8):
+    """``labels > 0`` as a mask of ``dtype`` (CreateMask)."""
+    return (labels > 0).to(dtype)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(x, c: int):
+    """``x * c`` modulo 2**32 for int64 ``x`` in ``[0, 2**32)``: the two
+    16-bit halves of ``c`` apart, so that no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _mix_u32(x):
+    """The JAX package's elementwise uint32 hash (a finalizer-style
+    avalanche), in int64 kept to 32 bits: ids are taken modulo 2**32, as
+    their uint32 cast takes them."""
+    x = x.to(torch.int64) & _U32
+    x = _mul_u32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul_u32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def draw_grow_boundary(gen: Generators) -> dict:
+    """The per-call seed of the label hash: uniform in ``[0, 2**31 - 1)``."""
+    return {"seed": int(torch.randint(0, 2**31 - 1, (1,), generator=gen.host)[0])}
+
+
+def apply_grow_boundary(labels, seed: int, max_steps=3, only_xy=True):
+    """Erode each label by its own number of steps in ``[0, max_steps]``,
+    ``_mix_u32(id ^ seed) % (max_steps + 1)``: one boundary step at a time,
+    kept where the label's count exceeds the step."""
+    steps = _mix_u32(labels.to(torch.int64) ^ int(seed)) % (max_steps + 1)
+    out = labels
+    for i in range(max_steps):
+        eroded = grow_boundary(out, steps=1, only_xy=only_xy)
+        out = torch.where((steps > i) & (labels > 0), eroded, out)
+    return out
+
+
+def random_grow_boundary(gen: Generators, labels, max_steps=3, only_xy=True):
+    """Boundary growth with a random number of erosion steps per label
+    (CustomGrowBoundary): each label's count is a hash of its id and a
+    per-call seed, independent for any number of labels."""
+    return apply_grow_boundary(labels, **draw_grow_boundary(gen), max_steps=max_steps, only_xy=only_xy)
+
+
+def expand_labels(labels, expansion_voxels: int = 1):
+    """Grow labels into background by ``expansion_voxels`` voxels within each
+    z section (ExpandLabels): each round, a background voxel takes the
+    first labelled neighbour of its in-plane cross, in the order -y, +y, -x,
+    +x (a 2D array: -y, +y, -x, +x as well)."""
+    dims = labels.dim()
+    offsets = []
+    for d in range(1 if dims == 3 else 0, dims):
+        for s in (-1, 1):
+            o = [0] * dims
+            o[d] = s
+            offsets.append(o)
+    out = labels
+    for _ in range(int(expansion_voxels)):
+        filled = out
+        for o in offsets:
+            n = _shifted(out, o, fill=0)
+            filled = torch.where((filled == 0) & (n > 0), n, filled)
+        out = filled
+    return out

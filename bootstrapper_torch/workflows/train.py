@@ -18,12 +18,11 @@ config sets them).  ``mesh = true`` (``bs-torch train --mesh``) over
 more than one device shards the step over a ``(data, space)`` grid, one
 process per device entry (``run_training``); the process group's backend
 is NCCL where every entry is a distinct card, gloo where the entries are
-CPUs or a card repeats.  Not ported, and raised as ``NotImplementedError``
-where a config asks for it: TPU folding (``fold_xy = true``).  The JAX
-package's fold probe, which turns
-folding on for a batch of 8 or more where a TPU compile of it passes, is
-TPU machinery: here a config without ``fold_xy`` trains unfolded at any
-batch, with no probe.  ``BS_INT8=1`` is ignored here with a warning, as
+CPUs or a card repeats.  TPU folding (``fold_xy``) is a layout of the same
+net for the TPU's matrix unit, and the JAX package's fold probe, which
+turns it on for a batch of 8 or more where a TPU compile passes, is TPU
+machinery: here every config trains unfolded at any batch, with no probe,
+and ``fold_xy = true`` is logged as trained unfolded.  ``BS_INT8=1`` is ignored here with a warning, as
 the JAX package ignores it in training (int8 is inference-only there, and
 the port's prediction refuses it until it is ported).
 """
@@ -107,9 +106,12 @@ def setup_train(config_file: str, **overrides) -> dict:
     return cfg
 
 
-def _check_ported(cfg: dict) -> None:
+def _note_fold(cfg: dict) -> None:
+    """``fold_xy = true`` asks the JAX package for its TPU layout of the same
+    net; the port trains that net unfolded and says so, as the JAX workflow
+    does where its probe declines the fold."""
     if cfg.get("fold_xy"):
-        raise NotImplementedError("fold_xy: folded (TPU layout) training is not ported")
+        logger.info("fold_xy = true: training unfolded (the fold is a TPU layout of the same net)")
 
 
 def _is_synthetic(cfg: dict) -> bool:
@@ -139,7 +141,7 @@ def run_training(config_file: str, device=None, compute_dtype=torch.bfloat16, **
             os.environ["BS_INT8"] = "1"
     devices = resolve_devices(device)
     cfg = setup_train(config_file, **overrides)
-    _check_ported(cfg)
+    _note_fold(cfg)
     if cfg.get("mesh", False) and len(devices) > 1:
         return _run_mesh_training(cfg, devices, compute_dtype)
     return _train(cfg, devices[0], compute_dtype)

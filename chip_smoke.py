@@ -88,10 +88,10 @@ Phases, each printing one JSON line:
     them (the route turns it off itself), their device ms and peak memory;
     ``mtlsd_round``, a 3d_mtlsd round from ``make_round_configs`` without
     GT on a fresh Voronoi sample of TRAIN_VOLUME: train (MTLSD_ITERATIONS),
-    predict (streamed, both heads), segment, evaluate by LSD errors on the
-    card, filter; one block of the scan against the CPU route, the GT's own
-    LSDs through the scan on a crop (under 1% masked), the scan by parts,
-    the steady train step; ``chain``, ``3d_lsd -> 3d_affs_from_3d_lsd``
+    predict (streamed, both heads), segment (at MTLSD_THRESHOLDS),
+    evaluate by LSD errors on the card, filter; one block of the scan
+    against the CPU route, the GT's own LSDs through the scan on a crop
+    (under 1% masked), the scan by parts, the steady train step; ``chain``, ``3d_lsd -> 3d_affs_from_3d_lsd``
     with the shipped refiner on the same sample: train 3d_lsd
     (CHAIN_ITERATIONS), predict the chain (both links streamed), segment;
     the refiner's bf16 forward against the CPU fp32 one on the 3d_lsd
@@ -199,6 +199,29 @@ Phases, each printing one JSON line:
     its plan and K4 held against its plain version at their convs too),
     the uint8 affinities held to the bf16 ones within INT8_MAX_MEAN and
     INT8_MAX_DIFF;
+(u) the transposed-conv U-Net (``transposed_up``), after ``int8``: the
+    full-width 3d_affs net with ``constant_upsample`` false (an ``r_up``
+    product and depth-to-space before each decoder level, numpy-seeded):
+    its bf16 forward at the main path's tile against fp32 (the library's
+    convs, TF32 off) within FWD_ATOL_BF16, K1 once at each of the eleven
+    tile convs; ``run_prediction`` of TRANSPOSED_VOLUME with z streaming
+    left on, which the workflow declines for this net (tiled, K1 once per
+    tile at each), then ``run_segmentation``; on a Voronoi sample of
+    TRANSPOSED_TRAIN_VOLUME, the bf16 gradients of every parameter against
+    fp32 (``transposed_gradients``: the ``r_up`` parameters within
+    GRAD_REL_L2, the others within it or within TRANSPOSED_WITNESS_FACTOR
+    of a witness whose upsamples multiply in fp32), one step moving every
+    ``r_up`` parameter, ``run_training`` to
+    TRANSPOSED_ITERATIONS[0] and on to [1] (it must resume; K1 once per
+    iteration at each training conv) and a prediction from its checkpoint;
+    the tiled run under ``BS_INT8=1`` (K4 at every conv, none on K1)
+    within INT8_MAX_MEAN and INT8_MAX_DIFF of the bf16 run; the upsample
+    alone at its three shapes of a tile (ms, bound, one
+    ``F.conv_transpose3d`` call on the same data); and ``fold_augment``,
+    ``clahe_augment``, ``create_mask``, ``expand_labels`` and
+    ``random_grow_boundary`` on the card against the CPU from the same
+    draws (labels bit-equal, the others within AUGMENT_ATOL).  Its K1 and
+    K4 launches are counted on the rows of their convs;
 (p) SAM and proofreading (``proofread``): ``bs-torch proofread --script``
     over a PROOFREAD_VOLUME raw volume with a random vit_b checkpoint
     written under the official keys (its mask head set so that masks
@@ -310,6 +333,10 @@ LSD_ERR_ATOL = 1e-5
 SANITY_CROP = (16, 256, 256)
 SANITY_MAX_MASKED = 0.01
 MTLSD_ITERATIONS = 20
+# the mtlsd round's ws thresholds, two of the default three: each
+# segmentation costs an LSD error scan (about 8 s on the host) in each of the
+# round's two evaluations
+MTLSD_THRESHOLDS = (0.2, 0.5)
 CHAIN_ITERATIONS = 20
 
 # the 2D chain (``chain2d``): 2d_mtlsd's iterations (batches of 10), and the
@@ -388,6 +415,22 @@ INT8_MAX_MEAN = 1.5
 INT8_MAX_DIFF = 12
 INT8_2D_CASE = ("2d_300to300_k133", (32, 1, 60, 60, 300), None, (32, 1, 60, 60, 300), (1, 3, 3, 300, 300), True,
                 False)
+
+# the transposed-conv U-Net (``transposed_up``): the main path's volume; the
+# training sample, the iterations of its two run_training calls (the second
+# resumes) and the predicted ROI (voxel offset, shape); the augments'
+# sections of that sample, fold and CLAHE held card to CPU within
+# AUGMENT_ATOL (fp32 interpolation and sums in other orders)
+TRANSPOSED_VOLUME = (8, 640, 640)
+TRANSPOSED_TRAIN_VOLUME = (48, 320, 320)
+TRANSPOSED_ITERATIONS = (10, 20)
+TRANSPOSED_PREDICT_ROI = ((8, 40, 40), (16, 240, 240))
+AUGMENT_SECTIONS = 16
+AUGMENT_ATOL = 1e-5
+# the transposed net's bf16 gradients: a parameter past GRAD_REL_L2 (the
+# deepest encoder level, 0.052 from seed 0 on an H100) may stand at most
+# this factor past the witness whose upsamples multiply in fp32 (0.0518 there)
+TRANSPOSED_WITNESS_FACTOR = 1.1
 
 # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
 PEAK_INT8 = 1979e12
@@ -911,12 +954,13 @@ def write_inputs(work: str, net_config: dict, params, raw_shape, seed: int) -> d
 
 def run_main_path(
     work: str, net_config: dict, params, raw_shape, seed: int, device, zstream: bool = False,
-    segment: bool = True,
+    segment: bool = True, opt_out: bool = True,
 ) -> dict:
     """``run_prediction`` then (``segment``) ``run_segmentation`` with the
     launch counts zeroed just before each and read just after.  ``zstream`` False runs
-    the tiled path (``BS_ZSTREAM=0``, as a user opts out); True leaves the
-    workflow its default, which must then stream.  On the card, the
+    the tiled path (``BS_ZSTREAM=0``, as a user opts out; with ``opt_out``
+    False streaming stays on and the workflow must decline it for the net);
+    True leaves the workflow its default, which must then stream.  On the card, the
     device's busy time over ``run_prediction`` comes from ``torch.profiler``
     device events (``profiled``)."""
     from bootstrapper_torch.core.arrays import open_ds
@@ -929,7 +973,7 @@ def run_main_path(
 
     saved = os.environ.get("BS_ZSTREAM")
     if not zstream:
-        os.environ["BS_ZSTREAM"] = "0"
+        os.environ["BS_ZSTREAM"] = "0" if opt_out else "1"
     try:
         reset_launch_counts()
         stats, device_ms = profiled(
@@ -1355,6 +1399,9 @@ def tile_breakdown(net_config: dict, params, seed: int) -> dict:
 
 #: distances computed at once in ``voronoi_sample`` (fp32, 1 GB)
 VORONOI_ELEMENTS = 2**28
+# a section's candidate cells: those within this many mean cell spacings in
+# weighted z (``voronoi_sample``)
+VORONOI_REACH = 2.0
 
 
 def voronoi_sample(shape, n_cells: int, seed: int, device) -> dict:
@@ -1375,14 +1422,40 @@ def voronoi_sample(shape, n_cells: int, seed: int, device) -> dict:
         indexing="ij",
     )
     labels = torch.empty(shape, dtype=torch.int64, device=device)
-    # rows at a time: a CREMI-sized section against its thousands of cells
-    # would take tens of GB of distances at once
-    rows = max(1, VORONOI_ELEMENTS // (shape[2] * n_cells))
+    # A section's candidates are the cells nearer than ``reach`` in weighted
+    # z: every other cell is at least that far from each of its pixels.
+    # Where each pixel of a row chunk has a candidate nearer than that, no
+    # other cell can win or tie, and the first nearest candidate (the
+    # candidates keep the cells' order) is the first nearest cell, with each
+    # distance summed as over all cells; a chunk where that fails takes all
+    # cells.  Rows at a time: a CREMI-sized section against its thousands of
+    # cells would take tens of GB of distances at once.
+    reach2 = (VORONOI_REACH * (10.0 * shape[0] * shape[1] * shape[2] / n_cells) ** (1 / 3)) ** 2
+
+    def nearest(dz, p, cell_ids, y0, rows):
+        """Each pixel's nearest cell among ``p`` (``dz``: their z terms) in
+        rows ``[y0, y0 + rows)``, and its squared distance."""
+        yc, xc = yy[y0 : y0 + rows].reshape(-1, 1), xx[y0 : y0 + rows].reshape(-1, 1)
+        d = dz + (yc - p[:, 1]) ** 2 + (xc - p[:, 2]) ** 2
+        dmin, arg = d.min(1)
+        return cell_ids[arg].reshape(-1, shape[2]), dmin
+
+    all_rows = max(1, VORONOI_ELEMENTS // (shape[2] * n_cells))
     for z in range(shape[0]):
+        dz = ((z - pts[:, 0]) * 10.0) ** 2
+        near = dz < reach2
+        n_near = int(near.sum())
+        rows = max(1, VORONOI_ELEMENTS // (shape[2] * max(n_near, 1)))
         for y0 in range(0, shape[1], rows):
-            yc, xc = yy[y0 : y0 + rows].reshape(-1, 1), xx[y0 : y0 + rows].reshape(-1, 1)
-            d = ((z - pts[:, 0]) * 10.0) ** 2 + (yc - pts[:, 1]) ** 2 + (xc - pts[:, 2]) ** 2
-            labels[z, y0 : y0 + rows] = ids[d.argmin(1)].reshape(-1, shape[2])
+            if n_near:
+                got, dmin = nearest(dz[near], pts[near], ids[near], y0, rows)
+                if bool((dmin < reach2).all()):
+                    labels[z, y0 : y0 + rows] = got
+                    continue
+            for y1 in range(y0, min(y0 + rows, shape[1]), all_rows):
+                labels[z, y1 : min(y1 + all_rows, y0 + rows)] = nearest(
+                    dz, pts, ids, y1, min(all_rows, y0 + rows - y1)
+                )[0]
     edge = torch.zeros(shape, dtype=torch.bool, device=device)
     edge[:, 1:] |= labels[:, 1:] != labels[:, :-1]
     edge[:, :, 1:] |= labels[:, :, 1:] != labels[:, :, :-1]
@@ -1523,6 +1596,55 @@ def check_conv_function(seed: int, device="cuda", cases=FUNCTION_CASES) -> list:
     return rows
 
 
+def net_gradients(model, batch: dict) -> tuple:
+    """``(loss, {parameter name: gradient})`` of ``model`` on ``batch``."""
+    from bootstrapper_torch.train.loop import loss_fn
+
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+
+@contextlib.contextmanager
+def library_convs():
+    """Every conv of the U-Net on the library route inside (cuDNN at every
+    shape); routed by shape again after."""
+    from bootstrapper_torch.models import unet as U
+    from bootstrapper_torch.ops import conv3d as C
+
+    real = U.conv3d
+    U.conv3d = lambda x, w, b=None, relu=False, pack=None: C.conv3d_library(x, w, b, relu=relu)
+    try:
+        yield
+    finally:
+        U.conv3d = real
+
+
+def fp32_gradients(net_config: dict, params, batch: dict, device) -> tuple:
+    """``net_gradients`` of the fp32 model with every conv on the library
+    route (cuDNN, TF32 off)."""
+    import torch
+
+    from bootstrapper_torch.models import Model, load_params
+
+    fp32 = load_params(Model(net_config, compute_dtype=torch.float32), params).to(device)
+    with library_convs(), fp32_exact():
+        return net_gradients(fp32, batch)
+
+
+def relative_l2(got: dict, ref: dict) -> dict:
+    """Per parameter, ``|got - ref| / |ref|``; a gradient that is missing or
+    all zero raises."""
+    rel = {}
+    for n, r in ref.items():
+        g = got[n]
+        if g is None or not bool(g.abs().max() > 0):
+            raise AssertionError(f"{n}: no gradient on the kernel route")
+        rel[n] = float((g - r).norm() / r.norm())
+    return rel
+
+
 def whole_net_gradients(net_config: dict, params, batch: dict, device="cuda") -> dict:
     """On one batch: the bf16 model's gradients (kernel route, as it trains)
     against the fp32 model's with every conv on the library route (cuDNN,
@@ -1531,36 +1653,16 @@ def whole_net_gradients(net_config: dict, params, batch: dict, device="cuda") ->
     import torch
 
     from bootstrapper_torch.models import Model, load_params
-    from bootstrapper_torch.models import unet as U
     from bootstrapper_torch.ops import conv3d as C
-    from bootstrapper_torch.train.loop import loss_fn
-
-    def grads(model):
-        model.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
-        loss.backward()
-        return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
 
     before = C.COUNTS["kernel"]
     bf16 = load_params(Model(net_config), params).to(device)
-    loss16, g16 = grads(bf16)
+    loss16, g16 = net_gradients(bf16, batch)
     kernel_launches = C.COUNTS["kernel"] - before
     if kernel_launches == 0 and torch.device(device).type == "cuda":
         raise AssertionError("the bf16 training forward launched no conv kernel")
-    fp32 = load_params(Model(net_config, compute_dtype=torch.float32), params).to(device)
-    real, tf32 = U.conv3d, torch.backends.cudnn.allow_tf32
-    U.conv3d = lambda x, w, b=None, relu=False, pack=None: C.conv3d_library(x, w, b, relu=relu)
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        loss32, g32 = grads(fp32)
-    finally:
-        U.conv3d, torch.backends.cudnn.allow_tf32 = real, tf32
-    rel = {}
-    for n, ref in g32.items():
-        got = g16[n]
-        if got is None or not bool(got.abs().max() > 0):
-            raise AssertionError(f"{n}: no gradient on the kernel route")
-        rel[n] = float((got - ref).norm() / ref.norm())
+    loss32, g32 = fp32_gradients(net_config, params, batch, device)
+    rel = relative_l2(g16, g32)
     worst = max(rel, key=rel.get)
     if rel[worst] > GRAD_REL_L2:
         raise AssertionError(f"bf16 gradients vs fp32: {worst} relative L2 {rel[worst]} > {GRAD_REL_L2}")
@@ -2452,6 +2554,9 @@ def mtlsd_round_phase(work: str, volumes: dict, seed: int, net_config: dict, ite
     round_dir = os.path.join(work, "mtlsd")
     paths = configs.make_round_configs(round_dir, volumes, ["3d_mtlsd"], max_iterations=iterations)
     write_setup_config(os.path.join(round_dir, "setups", "3d_mtlsd"), net_config)
+    seg_cfg = tomlio.load(paths["segment"])
+    seg_cfg["segment"]["vol"]["ws_params"] = {"thresholds": list(MTLSD_THRESHOLDS)}
+    tomlio.dump(seg_cfg, paths["segment"])
     ev = tomlio.load(paths["evaluate"])["evaluate"]["vol"]
     if "gt" in ev or ev["pred"]["params"] != {"lsd_sigma": LSD_SIGMA}:
         raise AssertionError(f"the round's evaluation does not score by LSD errors: {ev}")
@@ -4581,6 +4686,328 @@ def torch_cuda(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+# -- (u) the transposed-conv U-Net --------------------------------------------
+
+
+def transposed_config(net_config: dict) -> dict:
+    """``net_config`` with transposed-conv upsampling (``constant_upsample``
+    false): the same convs at the same shapes, an ``r_up`` product before
+    each decoder level."""
+    return {**net_config, "constant_upsample": False}
+
+
+def trace_upsamples(net_config: dict, input_shape) -> list:
+    """``(input shape, weight shape, factors)`` of every transposed upsample
+    of one forward at ``input_shape``, traced on the ``meta`` device."""
+    import torch
+
+    from bootstrapper_torch.models import Model
+    from bootstrapper_torch.models import unet as U
+
+    real, calls = U.upsample_transposed, []
+
+    def record(x, w, b, factors):
+        calls.append((tuple(x.shape), tuple(w.shape), tuple(factors)))
+        return real(x, w, b, factors)
+
+    U.upsample_transposed = record
+    try:
+        with torch.device("meta"):
+            model = Model(net_config).eval()
+        with torch.no_grad():
+            model(torch.empty((1, *input_shape, 1), device="meta"))
+    finally:
+        U.upsample_transposed = real
+    return calls
+
+
+def upsample_rows(net_config: dict, seed: int) -> list:
+    """The transposed upsample (``unet.upsample_transposed``: one bf16 product
+    and a depth-to-space, no kernel of its own) at each shape of a tile:
+    its device time (CUDA events around queued calls), its bound (the
+    product's operations at the bf16 peak, or its bytes: input, weight,
+    bias and output once each, at the memory rate), and one
+    ``F.conv_transpose3d`` call on the same data (the weight flipped to
+    torch's layout), which it must equal within one bf16 ulp or two of the
+    output's largest magnitude."""
+    import torch
+    import torch.nn.functional as F
+
+    from bootstrapper_torch.models import unet as U
+    from bootstrapper_torch.ops.conv3d import empty_channels_last
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for xs, ws, factors in trace_upsamples(net_config, TILED_INPUT):
+        x = empty_channels_last(xs, torch.bfloat16, "cuda")  # as a conv pass leaves it
+        x.copy_(torch.randn(xs, generator=gen, device="cuda"))
+        w = (torch.randn(ws, generator=gen, device="cuda") / ws[3] ** 0.5).to(torch.bfloat16)
+        b = torch.randn(ws[-1], generator=gen, device="cuda").to(torch.bfloat16)
+        got = U.upsample_transposed(x, w, b, factors)
+        xd = x.contiguous().permute(0, 4, 1, 2, 3)
+        wt = torch.flip(w, (0, 1, 2)).permute(3, 4, 0, 1, 2).contiguous()  # (Ci, Co, *K)
+        ref = F.conv_transpose3d(xd, wt, b, stride=factors).permute(0, 2, 3, 4, 1)
+        err = float((got.float() - ref.float()).abs().max())
+        if err > 2.0**-7 * float(ref.float().abs().max()):
+            raise AssertionError(f"transposed upsample at {xs}: max |err| {err} against F.conv_transpose3d")
+        ms = cuda_time_ms(lambda: U.upsample_transposed(x, w, b, factors), iters=10, queued=True,
+                          sleep_ms=KERNEL_SLEEP_MS)
+        library_ms = cuda_time_ms(lambda: F.conv_transpose3d(xd, wt, b, stride=factors), iters=10, queued=True,
+                                  sleep_ms=KERNEL_SLEEP_MS)
+        flops = 2.0 * (x.numel() // xs[-1]) * ws[3] * math.prod(factors) * ws[4]
+        nbytes = 2.0 * (x.numel() + w.numel() + b.numel() + got.numel())
+        bound_ms, bound_by = bound(flops, PEAK_BF16, nbytes)
+        rows.append(
+            {
+                "x": list(xs), "w": list(ws), "factors": list(factors), "max_abs_err": err, "ms": ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "conv_transpose3d_ms": library_ms,
+                "tflops": flops / ms / 1e9,
+            }
+        )
+        del x, w, b, got, xd, wt, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def transposed_forward(net_config: dict, params, seed: int, device="cuda") -> tuple:
+    """One bf16 forward at the main path's tile (K1 route) against the fp32
+    forward with every conv on the library route (TF32 off), on sigmoid
+    outputs within FWD_ATOL_BF16; K1's launches of the bf16 forward by
+    conv.  Returns ``(line, launches by conv)``."""
+    import torch
+
+    from bootstrapper_torch.models import Model, load_params
+    from bootstrapper_torch.ops import conv3d_kernel_launches, reset_launch_counts
+
+    x = torch.from_numpy(np.random.default_rng(seed).uniform(-1, 1, (1, *TILED_INPUT, 1)).astype(np.float32))
+    x = x.to(device)
+    model = load_params(Model(net_config), params).to_compute(device, torch.bfloat16).eval()
+    reset_launch_counts()
+    with torch.no_grad():
+        out16 = model(x)["3d_affs"].float()
+    by_conv = conv3d_kernel_launches()
+    del model
+    fp32 = load_params(Model(net_config, compute_dtype=torch.float32), params).to(device).eval()
+    with torch.no_grad(), library_convs(), fp32_exact():
+        out32 = fp32(x)["3d_affs"]
+    err = float((out16 - out32).abs().max())
+    if not (bool(torch.isfinite(out16).all()) and err <= FWD_ATOL_BF16):
+        raise AssertionError(f"transposed net: bf16 forward vs fp32 max |err| {err} > {FWD_ATOL_BF16}")
+    return {"input": list(TILED_INPUT), "output": list(out16.shape), "bf16_max_abs_err": err,
+            "bf16_atol": FWD_ATOL_BF16}, by_conv
+
+
+def transposed_gradients(net_config: dict, params, batch: dict, device="cuda") -> dict:
+    """The bf16 gradients of a transposed-upsample net (kernel route) against
+    fp32 (``fp32_gradients``), beside a witness: the same bf16 net with its
+    upsamples' products in fp32, rounded to bf16 at their ends.  Every
+    parameter's gradient present and nonzero; every ``r_up`` parameter's
+    within GRAD_REL_L2; every other parameter's within GRAD_REL_L2, or no
+    further from fp32 than TRANSPOSED_WITNESS_FACTOR times the witness's
+    (then the distance is the bf16 convs' own, which the transposed
+    decoder carries back to the deepest levels without the trilinear
+    adjoint's averaging, and not the upsample's)."""
+    from bootstrapper_torch.models import Model, load_params
+    from bootstrapper_torch.models import unet as U
+
+    bf16 = load_params(Model(net_config), params).to(device)
+    loss16, g16 = net_gradients(bf16, batch)
+    real = U.upsample_transposed
+    U.upsample_transposed = lambda x, w, b, f: real(x.float(), w.float(), b.float(), f).to(x.dtype)
+    try:
+        _, witness = net_gradients(bf16, batch)
+    finally:
+        U.upsample_transposed = real
+    loss32, g32 = fp32_gradients(net_config, params, batch, device)
+    rel, wit = relative_l2(g16, g32), relative_l2(witness, g32)
+    over = {
+        n: (v, wit[n]) for n, v in rel.items()
+        if v > GRAD_REL_L2 and (n.startswith("unet.r_up.") or v > TRANSPOSED_WITNESS_FACTOR * wit[n])
+    }
+    if over:
+        raise AssertionError(f"transposed net: bf16 gradients vs fp32 (relative L2, witness's): {over}")
+    worst = max(rel, key=rel.get)
+    up = {n: v for n, v in rel.items() if n.startswith("unet.r_up.")}
+    return {
+        "parameters": len(rel), "loss_bf16": loss16, "loss_fp32": loss32,
+        "max_rel_l2": rel[worst], "worst": worst, "worst_witness_rel_l2": wit[worst],
+        "over_bound": {n: [v, wit[n]] for n, v in rel.items() if v > GRAD_REL_L2},
+        "r_up_max_rel_l2": max(up.values()), "median_rel_l2": float(np.median(list(rel.values()))),
+        "bound": GRAD_REL_L2, "witness_factor": TRANSPOSED_WITNESS_FACTOR,
+    }
+
+
+def step_moves_upsamples(net_config: dict, params, batch: dict, device="cuda") -> dict:
+    """One train step (bf16, Adam) from ``params`` on ``batch``: every
+    ``r_up`` weight and bias must move (their gradients reach Adam)."""
+    from bootstrapper_torch.models import Model, load_params
+    from bootstrapper_torch.train.loop import TrainState, make_optimizer, make_train_step
+
+    model = load_params(Model(net_config), params).to(device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith("unet.r_up.")}
+    state = TrainState(0, model, make_optimizer(model, 0.5e-4))
+    _, m = make_train_step()(state, batch)
+    moved = {n: float((p.detach() - before[n]).abs().max()) for n, p in model.named_parameters() if n in before}
+    if len(moved) != 2 * (len(net_config["downsample_factors"])) or not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"a train step left r_up parameters unmoved: {moved}")
+    return {"loss": float(m["loss"]), "r_up_max_abs_step": moved}
+
+
+def augments_card_vs_cpu(sample: dict, seed: int) -> dict:
+    """The five augments the training transform does not reach, on the card
+    against the CPU from the same draws (``pipeline/augment.py``'s draw and
+    apply): the label ops bit-equal, fold and CLAHE within AUGMENT_ATOL;
+    each apply's ms on the card."""
+    import torch
+
+    from bootstrapper_torch.pipeline import augment as A
+
+    gen = A.Generators(seed)
+    raw = torch.from_numpy(sample["raw"][:AUGMENT_SECTIONS].astype(np.float32) / 255.0)
+    labels = torch.from_numpy(sample["labels"][:AUGMENT_SECTIONS].view(np.int64))
+    z = raw.shape[0]
+    fold = A.draw_fold(gen, z, prob=0.5)
+    clahe = A.draw_clahe(gen, z)
+    grow = A.draw_grow_boundary(gen)
+    ops = {
+        "fold_augment": (lambda r, l: A.apply_fold(r, **fold), AUGMENT_ATOL),
+        "clahe_augment": (lambda r, l: A.apply_clahe(r, **clahe), AUGMENT_ATOL),
+        "create_mask": (lambda r, l: A.create_mask(l), 0),
+        "expand_labels": (lambda r, l: A.expand_labels(torch.where(l % 3 == 0, 0, l), 3), 0),
+        "random_grow_boundary": (lambda r, l: A.apply_grow_boundary(l, **grow), 0),
+    }
+    rc, lc = raw.cuda(), labels.cuda()
+    out = {"shape": list(raw.shape), "sections_folded": int(sum(fold["do"]))}
+    for name, (fn, atol) in ops.items():
+        want = fn(raw, labels)
+        got = fn(rc, lc).cpu()
+        err = float((got.double() - want.double()).abs().max())
+        if got.dtype != want.dtype or err > atol:
+            raise AssertionError(f"{name} on the card vs the CPU: max |err| {err} > {atol} ({got.dtype})")
+        if name == "random_grow_boundary" and not bool(((got == 0) & (labels != 0)).any()):
+            raise AssertionError("random_grow_boundary grew no boundary")
+        out[name] = {"max_abs_err": err, "atol": atol, "ms": cuda_time_ms(lambda: fn(rc, lc), iters=3)}
+    return out
+
+
+def transposed_phase(work: str, seed: int, net_config: dict, bf16_affs: np.ndarray, device="cuda") -> tuple:
+    """The transposed-conv U-Net (``transposed_config`` of the full-width
+    ``net_config``, numpy-seeded parameters) through the entry points:
+    (1) the bf16 forward at the tile against fp32, K1 once at each of the
+    tile's eleven convs; (2) ``run_prediction`` of the main path's volume
+    with z streaming left on (the workflow declines it for this net: tiled),
+    then ``run_segmentation``, K1 once per tile at each of the eleven; (3)
+    training on a Voronoi sample: the bf16 gradients against fp32 for every
+    parameter (the ``r_up`` weights among them), one step moving every
+    ``r_up`` parameter, ``run_training`` to TRANSPOSED_ITERATIONS[0] and on
+    to [1] (it resumes), K1 once per iteration at each training conv, and a
+    prediction from its checkpoint; (4) the tiled run under ``BS_INT8=1``
+    (K4 at every conv, once per tile at each traced shape, none on K1)
+    against (2)'s affinities within the int8 phase's bounds; (5) the
+    upsample alone at its three shapes (``upsample_rows``); (6) the five
+    augments on the card against the CPU.  ``bf16_affs`` is the resize
+    net's main path output, which (2)'s must differ from.  Returns ``(line,
+    K1 launch groups, K4 launches by conv, the tile's int8 cases)``."""
+    from bootstrapper_torch.core.arrays import open_ds
+    from bootstrapper_torch.models import init_params_numpy
+    from bootstrapper_torch.models.zstream import stream_eligible
+    from bootstrapper_torch.models.model import unet_config
+    from bootstrapper_torch.pipeline.training import TrainingPipeline
+    from bootstrapper_torch.train.sampler import Sample
+
+    t_phase = time.perf_counter()
+    cuda = torch_cuda(device)
+    nc = transposed_config(net_config)
+    if stream_eligible(unet_config(nc)):
+        raise AssertionError("the z stream takes a transposed-upsample net")
+    params = init_params_numpy(nc, seed)
+    out, groups = {}, []
+    tile_cases = conv_cases()
+    want_tile = {conv_key(c): 1 for c in tile_cases}
+
+    t0 = time.perf_counter()
+    out["forward"], by_conv = transposed_forward(nc, params, seed, device)
+    out["forward"]["seconds"] = time.perf_counter() - t0
+    if cuda and by_conv != want_tile:
+        raise AssertionError(f"transposed forward: K1 launches by conv {by_conv}, want one at each tile conv")
+    groups.append({"by_conv": by_conv, "cases": tile_cases})
+
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_transposed_", dir=work) as sub:
+        res = run_main_path(sub, nc, params, TRANSPOSED_VOLUME, seed, device, opt_out=False)
+    affs = res.pop("affs")
+    res.pop("qconv_launches")
+    by_conv = res.pop("conv_launches")
+    tiles = res["tiles"]
+    if cuda and (by_conv != {k: tiles for k in want_tile} or res["segment_launches"]["seed_maxima.kernel"] == 0):
+        raise AssertionError(f"transposed tiled path: {tiles} tiles, K1 launches by conv {by_conv}")
+    if np.array_equal(affs, bf16_affs):
+        raise AssertionError("the transposed net predicted what the resize net did")
+    groups.append({"by_conv": by_conv, "cases": tile_cases})
+    out["tiled"] = res
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_transposed_train_", dir=work) as sub:
+        paths = write_train_inputs(sub, nc, TRANSPOSED_TRAIN_VOLUME, seed, device, TRANSPOSED_PREDICT_ROI)
+        root = os.path.join(sub, "sample.zarr")
+        arrays = {k: open_ds(os.path.join(root, k)) for k in ("raw", "labels", "mask")}
+        pipe = TrainingPipeline(nc, paths["voxel_size"], [Sample(*arrays.values())], seed=seed, device=device,
+                                num_threads=1)
+        try:
+            batch = pipe.next_batch()
+        finally:
+            pipe.stop()
+        train = {"gradients": transposed_gradients(nc, params, batch, device),
+                 "step": step_moves_upsamples(nc, params, batch, device)}
+        del batch
+        train["round"] = train_round(paths, TRANSPOSED_ITERATIONS, device)
+        train["round"]["checkpoint"] = os.path.basename(train["round"]["checkpoint"])
+        by_conv = train["round"].pop("conv_launches")
+        if cuda:
+            train_cases = train_conv_cases(nc)
+            if by_conv != {conv_key(c): TRANSPOSED_ITERATIONS[1] for c in train_cases}:
+                raise AssertionError(f"transposed training: K1 launches by conv {by_conv}, want one per iteration")
+            groups.append({"by_conv": by_conv, "cases": train_cases})
+        sample = {k: a.to_ndarray() for k, a in arrays.items() if k != "mask"}
+    train["seconds"] = time.perf_counter() - t0
+    out["train"] = train
+
+    int8_cases = trace_int8_convs(nc, TILED_INPUT)
+    quantizing = sum(c[2] is None for c in int8_cases)
+    with int8_flag():
+        with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_transposed_int8_", dir=work) as sub:
+            q = run_main_path(sub, nc, params, TRANSPOSED_VOLUME, seed, device, segment=False, opt_out=False)
+    counts, qby_conv = q["predict_launches"], q.pop("qconv_launches")
+    want = {}
+    for c in int8_cases:
+        want[(c[3], c[4])] = want.get((c[3], c[4]), 0) + q["tiles"]
+    if (
+        (cuda and qby_conv != want)
+        or counts["qconv3d.kernel" if cuda else "qconv3d.plain"] != q["tiles"] * len(int8_cases)
+        or counts["qconv3d.quantize" if cuda else "qconv3d.quantize_plain"] != q["tiles"] * quantizing
+        or counts["conv3d.kernel"] or counts["conv3d.library"] or counts["conv3d.plain"] or q["conv_launches"]
+    ):
+        raise AssertionError(f"transposed int8: launches {counts}, K4 by conv {qby_conv}")
+    diff = np.abs(q.pop("affs").astype(np.int16) - affs.astype(np.int16))
+    q.pop("conv_launches")
+    q["vs_bf16"] = {
+        "mean_abs_diff": float(diff.mean()), "max_abs_diff": int(diff.max()),
+        "differing_share": float((diff != 0).mean()), "bounds": {"mean": INT8_MAX_MEAN, "max": INT8_MAX_DIFF},
+    }
+    if not (diff.mean() < INT8_MAX_MEAN and diff.max() <= INT8_MAX_DIFF):
+        raise AssertionError(f"transposed int8 predictions beyond the bounds of the bf16 ones: {q['vs_bf16']}")
+    out["int8"] = q
+
+    if cuda:
+        t0 = time.perf_counter()
+        out["upsample"] = upsample_rows(nc, seed)
+        out["upsample_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["augments"] = augments_card_vs_cpu(sample, seed)
+        out["augments"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, groups, qby_conv, int8_cases
+
+
 # -- (p) SAM and proofreading ------------------------------------------------
 
 
@@ -5088,6 +5515,20 @@ def main(argv=None) -> int:
         )
     del stream_affs
     emit({"phase": "int8", "nvidia_smi": smi, **int8})
+    # the transposed-conv U-Net at full width: forward, tiled predict and
+    # segment, training and resume, int8, the upsample alone, the augments
+    with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_transposed_") as work:
+        transposed, transposed_groups, tq_by_conv, tq_cases = transposed_phase(work, args.seed, net_config, affs)
+    emit({"phase": "transposed_up", "nvidia_smi": smi, **transposed})
+    # its int8 run's K4 launches, on the rows of the tile's convs (the same
+    # convs as the resize net's, traced in the same order)
+    tile_qrows = qconv_rows[: int8["convs_per_tile"]]
+    if [c[0] for c in tq_cases] != [r["shape"] for r in tile_qrows]:
+        raise AssertionError("the transposed net's int8 tile runs other convs than the resize net's")
+    for r, c in zip(tile_qrows, tq_cases):
+        n = tq_by_conv.pop((c[3], c[4]), 0)
+        r["launches"] += n
+        int8["launches"] += n
     # SAM and proofreading through the command line, SAM card vs CPU, timings
     with tempfile.TemporaryDirectory(prefix="bs_chip_smoke_proofread_") as work:
         proofread = proofread_phase(work, args.seed)
@@ -5111,7 +5552,9 @@ def main(argv=None) -> int:
     # the LSD phases' launches, on the rows of their convs (new convs, the
     # refiner's, held against plain here)
     conv_launches += merge_launches(
-        conv_rows, mtlsd_groups + chain_groups + chain2d_groups + synth_groups + cli_groups + multi_groups, args.seed
+        conv_rows,
+        mtlsd_groups + chain_groups + chain2d_groups + synth_groups + cli_groups + multi_groups + transposed_groups,
+        args.seed,
     )
     # their segments run K2 at the round's (64,512,512) stack, as the
     # command line's round does
@@ -5122,8 +5565,13 @@ def main(argv=None) -> int:
     round_seed_rows[0]["launches"] += lsd_seed_launches
     # the blockwise phase's, on the row of its block shape
     next(r for r in seed_rows if r["shape"] == "block_36x320x320_size10")["launches"] = blockwise["seed_launches"]
+    # the main path's and the transposed net's tiled segments, on the row
+    # of their (8,640,640) stack
+    transposed_seed = transposed["tiled"]["segment_launches"]["seed_maxima.kernel"]
+    seed_rows[0]["launches"] = main_path["segment_launches"]["seed_maxima.kernel"] + transposed_seed
     seed_launches += (
         stream_seed + sum(round_line["seed_launches"].values()) + lsd_seed_launches + blockwise["seed_launches"]
+        + transposed_seed
     )
     seed_rows += round_seed_rows
     top_conv = max(conv_rows, key=lambda r: r["ms"] * r["launches"])

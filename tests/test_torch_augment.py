@@ -272,3 +272,136 @@ def test_public_augments_run_and_keep_shape():
         x = fn(gen, x)
         assert x.shape == SHAPE and x.dtype == torch.float32
         assert float(x.min()) >= 0 and float(x.max()) <= 1
+
+
+# -- fold, CLAHE and the label ops ----------------------------------------------
+
+
+def _fold_draws(key, n, prob, max_strength):
+    """``fold_augment``'s draws from its key."""
+    kz, ka, kp, ks = _split(key, 4)
+    return {
+        "do": [bool(d) for d in np.asarray(jax.random.bernoulli(kz, prob, (n,)))],
+        "angle": np.asarray(jax.random.uniform(ka, (n,), maxval=np.pi)).tolist(),
+        "offset": np.asarray(jax.random.uniform(kp, (n,), minval=0.25, maxval=0.75)).tolist(),
+        "strength": np.asarray(jax.random.uniform(ks, (n,), minval=1.0, maxval=max_strength)).tolist(),
+    }
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_fold_apply_matches_jax(seed):
+    """At a fold probability of 0.5, so that sections fold and others not."""
+    key = jax.random.PRNGKey(seed)
+    raw = _raw(seed, (6, 40, 36))
+    want = np.asarray(JA.fold_augment(key, jnp.asarray(raw), prob=0.5, max_strength=6.0, width=8.0))
+    draws = _fold_draws(key, 6, 0.5, 6.0)
+    assert 0 < sum(draws["do"]) < 6
+    got = A.apply_fold(_t(raw), **draws, width=8.0).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    moved = (np.abs(got - raw) > 1e-3).any(axis=(1, 2))
+    assert moved.tolist() == draws["do"]
+
+
+def _clahe_raw(seed):
+    """Sections with values on every bin edge (``i / 128``, 0 and 1), values
+    outside [0, 1], a near-empty section (mean under ``signal_min``) and one
+    that is nearly constant."""
+    rng = np.random.default_rng(seed)
+    raw = rng.random((6, 24, 24), dtype=np.float32)
+    edges = (np.arange(129, dtype=np.float32) / np.float32(128)).astype(np.float32)
+    raw[0].flat[: edges.size] = edges
+    raw[1].flat[:40] = rng.choice([-0.25, -1e-3, 1.0 + 1e-3, 1.5, 0.0, 1.0], 40)
+    raw[2] = 0.0
+    raw[2, :3, :3] = rng.random((3, 3))
+    raw[3] = 0.5
+    raw[3, 0, :5] = edges[[0, 64, 127, 128, 63]]
+    raw[4] = raw[4] ** 4  # most of the mass in the low bins
+    return raw
+
+
+@pytest.mark.parametrize("nbins", [128, 100])
+def test_clahe_apply_matches_jax(nbins):
+    key = jax.random.PRNGKey(nbins)
+    raw = _clahe_raw(nbins)
+    want = np.asarray(JA.clahe_augment(key, jnp.asarray(raw), clip_range=(0.6, 1.0), nbins=nbins, signal_min=0.05))
+    clip = [float(jax.random.uniform(k, (), minval=0.6, maxval=1.0)) for k in _split(key, 6)]
+    got = A.apply_clahe(_t(raw), clip, nbins=nbins, signal_min=0.05).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[2], raw[2])  # under signal_min: untouched
+    assert not np.allclose(got[0], raw[0])
+
+
+def test_histogram_bins_as_jnp_histogram():
+    """Bin counts equal to ``jnp.histogram``'s on the edges themselves: left-
+    closed bins, the last closed on both sides, values outside dropped."""
+    raw = _clahe_raw(0)
+    for nbins in (128, 100, 7):
+        edges = jnp.linspace(0.0, 1.0, nbins + 1)
+        want = np.stack([np.asarray(jnp.histogram(jnp.asarray(s), bins=edges)[0]) for s in raw])
+        got = A._histogram(_t(raw.reshape(6, -1)), nbins).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_mix_u32_matches_jax_on_all_32_bits():
+    ids = np.array([0, 1, 63, 64, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1, 0xDEADBEEF], np.uint32)
+    ids = np.concatenate([ids, np.random.default_rng(0).integers(0, 2**32, 1000, dtype=np.uint64).astype(np.uint32)])
+    want = np.asarray(JA._mix_u32(jnp.asarray(ids)))
+    got = A._mix_u32(torch.from_numpy(ids.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+def _many_labels(seed, shape):
+    """Cubes of 2x4x4 voxels, over 64 labels, ids 2**31 and above."""
+    rng = np.random.default_rng(seed)
+    n = (shape[0] // 2) * (shape[1] // 4) * (shape[2] // 4)
+    ids = rng.choice(np.arange(2**31, 2**31 + 10 * n, 10, dtype=np.uint64), n, replace=False).astype(np.uint32)
+    ids[rng.random(n) < 0.1] = 0  # some background
+    blocks = ids.reshape(shape[0] // 2, shape[1] // 4, shape[2] // 4)
+    return np.kron(blocks, np.ones((2, 4, 4), np.uint32)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("seed,only_xy", [(0, True), (1, False)])
+def test_random_grow_boundary_apply_matches_jax(seed, only_xy):
+    key = jax.random.PRNGKey(seed)
+    lab = _many_labels(seed, (6, 40, 40))
+    assert len(np.unique(lab)) > 64 and lab.max() >= 2**31
+    want = np.asarray(JA.random_grow_boundary(key, jnp.asarray(lab), max_steps=3, only_xy=only_xy))
+    s = int(jax.random.randint(key, (), 0, np.iinfo(np.int32).max, dtype=jnp.int32))
+    got = A.apply_grow_boundary(torch.from_numpy(lab.astype(np.int64)), s, max_steps=3, only_xy=only_xy).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+    assert (got == 0).sum() > (lab == 0).sum()
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("expansion", range(4))
+def test_expand_labels_and_create_mask_match_jax(dims, expansion):
+    rng = np.random.default_rng(dims * 10 + expansion)
+    shape = (4, 20, 20)[-dims:]
+    lab = rng.integers(1, 7, shape).astype(np.int32)
+    lab[rng.random(shape) < 0.7] = 0
+    want = np.asarray(JA.expand_labels(jnp.asarray(lab), expansion))
+    got = A.expand_labels(_t(lab), expansion).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32 and (expansion == 0) == (got == lab).all()
+    mask = A.create_mask(_t(got))
+    assert mask.dtype == torch.uint8
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(JA.create_mask(jnp.asarray(want))))
+
+
+def test_new_draws_and_public_augments():
+    gen = A.Generators(2)
+    fold = A.draw_fold(gen, 4000, prob=0.25, max_strength=6.0)
+    assert abs(np.mean(fold["do"]) - 0.25) < 0.03
+    assert 0 <= min(fold["angle"]) and max(fold["angle"]) < np.pi
+    assert 0.25 <= min(fold["offset"]) and max(fold["offset"]) < 0.75
+    assert 1.0 <= min(fold["strength"]) and max(fold["strength"]) < 6.0
+    clip = A.draw_clahe(gen, 4000)["clip"]
+    assert 0.6 <= min(clip) and max(clip) < 1.0 and abs(np.mean(clip) - 0.8) < 0.01
+    seeds = [A.draw_grow_boundary(gen)["seed"] for _ in range(200)]
+    assert 0 <= min(seeds) and max(seeds) < 2**31 - 1 and len(set(seeds)) == 200
+    raw = _t(_raw(2))
+    for out in (A.fold_augment(gen, raw, prob=0.5), A.clahe_augment(gen, raw)):
+        assert out.shape == SHAPE and out.dtype == torch.float32 and torch.isfinite(out).all()
+    lab = torch.from_numpy(_many_labels(2, SHAPE).astype(np.int64))
+    grown = A.random_grow_boundary(gen, lab)
+    assert grown.shape == lab.shape and ((grown == 0) | (grown == lab)).all()

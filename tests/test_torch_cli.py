@@ -465,3 +465,18 @@ def test_doctor_prints_one_json_line(tmp_path):
     for key in ("networkx", "click", "imageio", "zstandard"):
         assert info[key] is True, key
     assert proc.returncode == (0 if info["cuda_available"] and info["nvcc"] else 1)
+
+
+def test_cli_module_runs_the_bs_torch_group():
+    """``python -m bootstrapper_torch.cli`` (the JAX package's ``python -m
+    bootstrapper_tpu.cli``) prints what ``bs-torch --help`` prints, as
+    ``python -m bootstrapper_torch`` runs that script's group."""
+
+    def run(module):
+        return subprocess.run(
+            [sys.executable, "-m", module, "--help"], capture_output=True, text=True, timeout=120, cwd=ROOT,
+        )
+
+    got, want = run("bootstrapper_torch.cli"), run("bootstrapper_torch")
+    assert got.returncode == want.returncode == 0
+    assert got.stdout == want.stdout and got.stdout.startswith("Usage: bs-torch ")

@@ -380,6 +380,29 @@ def test_stream_step_matches_forward_bf16(cuda):
 
 
 @pytest.mark.cuda
+def test_transposed_net_bf16_matches_fp32(cuda):
+    """A transposed-upsample net (``constant_upsample = false``, 4 -> 24 ->
+    144 -> 864 channels: the wide convs after each upsample on the kernel)
+    in bf16 against its fp32 forward on the card: the upsample a bf16
+    product, the convs bf16 (sigmoid outputs within 0.05, the smoke's
+    gate)."""
+    nc = get_net_config("3d_affs")
+    nc.update(num_fmaps=4, fmap_inc_factor=6, constant_upsample=False)
+    params = init_params_numpy(nc, 0)
+    x = np.random.default_rng(0).uniform(-1, 1, (1, 29, 100, 100, 1)).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda)
+    outs = {}
+    before = C.COUNTS["kernel"]
+    for dtype in (F32, BF16):
+        model = load_params(Model(nc, compute_dtype=dtype), params).to_compute(cuda, dtype).eval()
+        with torch.no_grad():
+            outs[dtype] = model(x)["3d_affs"].float().cpu().numpy()
+    assert C.COUNTS["kernel"] > before
+    assert outs[BF16].shape == (1, 1, 8, 8, 9) and np.isfinite(outs[BF16]).all()
+    np.testing.assert_allclose(outs[BF16], outs[F32], atol=0.05, rtol=0)
+
+
+@pytest.mark.cuda
 def test_device_io_keeps_a_pinned_buffer_per_shape(cuda):
     """Items of two shapes in any order: each slot pins one buffer per
     (name, shape) at first use and reuses it; outputs stay right."""

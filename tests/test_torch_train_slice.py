@@ -7,6 +7,7 @@ what the workflow refuses, its overrides file, snapshots, the host RSS
 cap and the stall watchdog."""
 
 import json
+import logging
 import os
 import time
 
@@ -162,7 +163,8 @@ def _refiner_inputs(name):
         # refiners with the zoo's inputs train on synthetic labels
         pytest.param({"setup": "3d_affs_from_2d_affs", "net": _refiner_inputs("3d_affs_from_2d_affs")},
                      None, id="change1-synthetic"),
-        pytest.param({"fold_xy": True}, (NotImplementedError, "fold_xy"), id="change2-fold_xy"),
+        # the JAX package's TPU fold of the same net: trained unfolded, logged
+        pytest.param({"fold_xy": True}, None, id="change2-fold_xy"),
         # mesh over one device trains as without it (the JAX package's
         # condition: more than one device)
         pytest.param({"mesh": True}, None, id="change3-mesh"),
@@ -170,10 +172,11 @@ def _refiner_inputs(name):
                      None, id="change4-synthetic"),
     ],
 )
-def test_unported_configs_raise(workdir, change, match):
+def test_unported_configs_raise(workdir, change, match, caplog):
     """What the workflow refuses, with the error it raises (``match``), and
     what it trains instead (``match`` None: one narrow iteration and a
-    checkpoint): the synthetic setups, and a mesh on one CPU device."""
+    checkpoint): the synthetic setups, ``fold_xy = true`` unfolded, and a
+    mesh on one CPU device."""
     cfg = tomlio.load(str(workdir / "train.toml"))["train"]
     setup = workdir / "setup" / "3d_affs"
     if "setup" in change:
@@ -191,9 +194,12 @@ def test_unported_configs_raise(workdir, change, match):
     cfg["max_iterations"] = 1
     tomlio.dump({"train": cfg}, str(workdir / "t.toml"))
     if match is None:
-        out = run_training(str(workdir / "t.toml"), device="cpu", compute_dtype=torch.float32)
+        with caplog.at_level(logging.INFO, logger="bootstrapper_torch.workflows.train"):
+            out = run_training(str(workdir / "t.toml"), device="cpu", compute_dtype=torch.float32)
         assert out["iterations"] == 1 and np.isfinite(out["final_loss"])
         assert out["checkpoint"] == str(setup / "model_checkpoint_1")
+        unfolded = [r for r in caplog.records if "training unfolded" in r.getMessage()]
+        assert len(unfolded) == int("fold_xy" in change)
         return
     with pytest.raises(match[0], match=match[1]):
         run_training(str(workdir / "t.toml"), device="cpu", compute_dtype=torch.float32)
