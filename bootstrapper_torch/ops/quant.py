@@ -36,6 +36,12 @@ amax and its quantization into s8 channels padded to a pitch of 16, then a
 float64 on the integer-valued tensors, which is exact (every partial sum
 stays below 2^53), then the same rescale.
 
+Over a batch spread across devices (``predict --sharded``) the lanes of a
+``ScaleGroup`` share each scale: every lane's amax pass, then the maximum
+of all lanes' amaxes on each lane, then each lane's quantization with it,
+so that each conv-pass input has one scale over the whole batch, as the
+JAX package's graph over the sharded batch takes it.
+
 ``COUNTS["kernel"]`` counts conv launches, ``COUNTS["quantize"]`` pairs of
 quantization passes (amax, quantize); ``KERNEL_LAUNCHES`` splits the conv
 launches by shape.  Gradients of round and clip are zero, so the U-Net
@@ -44,6 +50,7 @@ takes this route only with grad disabled and training ignores the flag.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import os
@@ -218,10 +225,173 @@ class QuantizedInput:
         return dataclasses.replace(self, xq=self.xq[(slice(None), *sl)])
 
 
+#: the calling thread's lane of a ``ScaleGroup`` (``ScaleGroup.lane``)
+_SHARED = threading.local()
+
+#: the switch of the scale recorder (``record_scales``): a list while on, to
+#: which every ``ScaleGroup`` made meanwhile appends itself; None (off) on
+#: the main path
+SCALE_RECORD = None
+
+
+class LaneFailed(RuntimeError):
+    """Raised in a lane of a ``ScaleGroup`` whose another lane failed."""
+
+
+class ScaleGroup:
+    """Lanes (logical devices) whose forwards share each int8 activation
+    scale, as the JAX package's graph over a batch sharded across devices
+    takes one scale per conv-pass input over the whole batch.
+
+    Each lane runs its forward in a thread of its own inside ``lane(k)``,
+    and the lanes take turns: one baton passes round them, so that only one
+    thread runs at a time (two threads queueing small operations at once
+    hand the interpreter's lock back and forth at every one of them, which
+    tripled the host's time on an H100).  At every quantization point
+    (``quantize_input``) a lane queues its amax pass, leaves the amax in a
+    slot and passes the baton on; when the baton comes back, every lane has
+    left its amax there, and the lane takes their maximum (a max never
+    rounds) and quantizes with it.  The amaxes stay on the devices: lane
+    k's stream waits for an event recorded after lane j's amax pass and
+    copies its one value, as ``predict._pipeline.Lane.receive`` orders a
+    copy; no host synchronisation.  Two slots alternate: a lane writes a
+    point's slot again only after every lane has read it.  On the CPU the
+    same path runs the plain amax and ``quantize``.
+
+    ``launches[k]``: lane k's conv kernel launches (``qconv_cuda``),
+    ``plain[k]`` its plain convs; ``recorded[k]`` (while ``record_scales``
+    is on): per point, lane k's own amax and the scale it quantized with."""
+
+    def __init__(self, lanes: int):
+        self.lanes = lanes
+        self._turns = [threading.Semaphore(0) for _ in range(lanes)]
+        self._failed = False
+        self._slots = ([None] * lanes, [None] * lanes)
+        self._points = [0] * lanes
+        self.launches = [0] * lanes
+        self.plain = [0] * lanes
+        self.recorded = None
+        if SCALE_RECORD is not None:
+            self.recorded = [[] for _ in range(lanes)]
+            SCALE_RECORD.append(self)
+
+    @contextlib.contextmanager
+    def lane(self, k: int):
+        """The calling thread as lane ``k`` until the block ends: lane 0
+        starts with the baton, lane k after lane k - 1 has passed its first
+        point; a lane that ends (or fails) passes the baton on."""
+        prev = getattr(_SHARED, "lane", None)
+        _SHARED.lane = (self, k)
+        try:
+            if k:
+                self._wait(k)
+            yield self
+        except BaseException:
+            self.fail()
+            raise
+        finally:
+            _SHARED.lane = prev
+            self._turns[(k + 1) % self.lanes].release()
+
+    def fail(self) -> None:
+        """Wake every lane; each raises ``LaneFailed`` where it waits."""
+        self._failed = True
+        for turn in self._turns:
+            turn.release()
+
+    def _wait(self, k: int) -> None:
+        self._turns[k].acquire()
+        if self._failed:
+            raise LaneFailed("another lane of this scale group failed")
+
+    def quantize(self, k: int, x) -> QuantizedInput:
+        cuda = x.is_cuda
+        local = amax_cuda(x) if cuda else x.abs().amax().float()
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(x.device))
+        slot = self._slots[self._points[k] % 2]
+        self._points[k] += 1
+        slot[k] = (local, event)
+        self._turns[(k + 1) % self.lanes].release()
+        self._wait(k)
+        amax = self._max_of(k, slot, x.device)
+        if cuda:
+            q = quantize_pass_cuda(x, amax)
+            with _LOCK:
+                COUNTS["quantize"] += 1
+        else:
+            q = QuantizedInput(*quantize(x, _over_127(torch.clamp(amax, min=1e-30))), x.dtype)
+            with _LOCK:
+                COUNTS["quantize_plain"] += 1
+        if self.recorded is not None:
+            self.recorded[k].append((local, q.sx))
+        return q
+
+    def _max_of(self, k: int, slot: list, device) -> torch.Tensor:
+        """The maximum of the slot's amaxes on lane ``k``'s device and stream
+        (int32 bits of non-negative floats on the card, whose order is the
+        floats' order; fp32 on the CPU)."""
+        out = slot[k][0]
+        stream = torch.cuda.current_stream(device) if out.is_cuda else None
+        for j, (t, event) in enumerate(slot):
+            if j == k:
+                continue
+            if stream is not None:
+                stream.wait_event(event)
+                c = torch.empty_like(t, device=device)
+                c.copy_(t, non_blocking=True)
+                t.record_stream(stream)  # read here: not to be reused before
+                t = c
+            out = torch.maximum(out, t)
+        return out
+
+    def scales(self) -> list:
+        """Per quantization point, ``(lane amaxes, lane scales)`` as fp32
+        host values (recorded groups only)."""
+        def f32(t):
+            t = t.detach().cpu()
+            return float(t.view(torch.float32) if t.dtype == torch.int32 else t.float())
+
+        points = len(self.recorded[0])
+        if any(len(r) != points for r in self.recorded):
+            raise RuntimeError("the lanes passed different numbers of quantization points")
+        return [
+            ([f32(r[p][0]) for r in self.recorded], [f32(r[p][1]) for r in self.recorded])
+            for p in range(points)
+        ]
+
+
+@contextlib.contextmanager
+def record_scales():
+    """Switch the scale recorder on for a block: every ``ScaleGroup`` made
+    inside it records each lane's amax and scale at every quantization
+    point; ``as`` gives the list of those groups."""
+    global SCALE_RECORD
+    prev, SCALE_RECORD = SCALE_RECORD, []
+    try:
+        yield SCALE_RECORD
+    finally:
+        SCALE_RECORD = prev
+
+
+def shared_scale(amaxes) -> float:
+    """The scale that every lane must quantize with, from the lanes' own
+    amaxes, as the plain version computes it: ``max(max(amaxes), 1e-30) /
+    127`` in fp32."""
+    amax = torch.tensor(amaxes, dtype=torch.float32).amax()
+    return float(_over_127(torch.clamp(amax, min=1e-30)))
+
+
 def quantize_input(x) -> QuantizedInput:
-    """``x`` (NDHWC) quantized with its own scale: the two kernels on a
-    CUDA tensor (``COUNTS['quantize']``), ``quantize`` elsewhere
-    (``COUNTS['quantize_plain']``)."""
+    """``x`` (NDHWC) quantized with its own scale, or, in a lane of a
+    ``ScaleGroup``, with the group's (``ScaleGroup.quantize``): the two
+    kernels on a CUDA tensor (``COUNTS['quantize']``), ``quantize``
+    elsewhere (``COUNTS['quantize_plain']``)."""
+    share = getattr(_SHARED, "lane", None)
+    if share is not None:
+        return share[0].quantize(share[1], x)
     if x.is_cuda:
         q = quantize_cuda(x)
         with _LOCK:
@@ -248,7 +418,11 @@ def qconv_quantized(q: QuantizedInput, qw: QuantizedWeights, b=None, *, relu: bo
     out_dtype = q.dtype if out_dtype is None else out_dtype
     if q.xq.is_cuda:
         return qconv_cuda(q, qw, b, relu=relu, out_dtype=out_dtype)
-    COUNTS["plain"] += 1
+    share = getattr(_SHARED, "lane", None)
+    with _LOCK:
+        COUNTS["plain"] += 1
+        if share is not None:
+            share[0].plain[share[1]] += 1
     return _qconv_int(q.xq, q.sx, qw.wq, qw.sw, b, relu, out_dtype)
 
 
@@ -437,9 +611,12 @@ def qconv_cuda(q: QuantizedInput, qw: QuantizedWeights, b=None, *, relu: bool = 
     if err != 0:
         raise RuntimeError(f"qconv kernel launch failed: cudaError {err}")
     key = (tuple(xq.shape), qw.shape)
+    share = getattr(_SHARED, "lane", None)
     with _LOCK:
         COUNTS["kernel"] += 1
         KERNEL_LAUNCHES[key] = KERNEL_LAUNCHES.get(key, 0) + 1
+        if share is not None:
+            share[0].launches[share[1]] += 1
     return out
 
 

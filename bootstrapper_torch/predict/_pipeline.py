@@ -260,12 +260,59 @@ def fetch(handle) -> Dict[str, np.ndarray]:
 
 
 def launches_now() -> int:
-    """The conv kernel's CUDA launches so far (``ops.conv3d.COUNTS``): a
-    multi-device predictor reads it around each lane's forward, all queued
-    from one thread, to count the launches of each logical device."""
-    from ..ops import conv3d
+    """The conv kernels' CUDA launches so far (K1's ``ops.conv3d.COUNTS``
+    and, under ``BS_INT8=1``, K4's ``ops.quant.COUNTS``): a multi-device
+    predictor reads it around each lane's forward, all queued from one
+    thread, to count the launches of each logical device."""
+    from ..ops import conv3d, quant
 
-    return conv3d.COUNTS["kernel"]
+    return conv3d.COUNTS["kernel"] + quant.COUNTS["kernel"]
+
+
+def dispatch_lanes(lanes: Sequence["Lane"], arrs: Sequence[np.ndarray], fns: Sequence[Callable],
+                   launches: list) -> list:
+    """Queue ``lanes[k].run(arrs[k], fns[k])`` on every lane and return the
+    handles, adding each lane's conv kernel launches to ``launches[k]``.
+
+    Without int8, or on one lane, the lanes are queued one after another
+    from this thread.  Under ``BS_INT8=1`` over several lanes each lane
+    runs in a thread of its own as a lane of one ``quant.ScaleGroup``
+    (the lanes take turns, from one quantization point to the next), so
+    that every conv-pass input is quantized with one scale over all lanes,
+    as the JAX package's graph over a sharded batch takes it; the threads
+    are joined once every lane's work is queued (nothing waits for the
+    devices).  A lane that fails releases the others and its error is
+    raised here."""
+    from ..ops import quant
+
+    if len(lanes) == 1 or not quant.int8_enabled():
+        handles = []
+        for k, (lane, arr, fn) in enumerate(zip(lanes, arrs, fns)):
+            n0 = launches_now()
+            handles.append(lane.run(arr, fn))
+            launches[k] += launches_now() - n0
+        return handles
+    group = quant.ScaleGroup(len(lanes))
+    handles: list = [None] * len(lanes)
+    errors: list = []
+
+    def run(k):
+        try:
+            with group.lane(k):
+                handles[k] = lanes[k].run(arrs[k], fns[k])
+        except BaseException as e:  # re-raised below, after every lane has stopped
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,), daemon=True) for k in range(len(lanes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise next((e for e in errors if not isinstance(e, quant.LaneFailed)), errors[0])
+    for k, n in enumerate(group.launches):
+        launches[k] += n
+    return handles
 
 
 class TileWriter:

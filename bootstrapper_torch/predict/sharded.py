@@ -11,7 +11,10 @@ same.  2D setups run as stacked sections, one section a device.
 The devices are a list (``resolve_devices``) that may name one device more
 than once: each entry is a logical device with its own replica, stream and
 buffers.  All of them are driven from one host thread: a step queues every
-device's tile before it waits for any of them.
+device's tile before it waits for any of them.  Under ``BS_INT8=1`` each
+device's forward is queued from a thread of its own, and the devices share
+every int8 activation scale (``_pipeline.dispatch_lanes``): the JAX
+package's scales, one per conv-pass input over the batch of all devices.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from .. import resolve_devices
 from ..core.arrays import Array
 from ..core.geometry import Coordinate, Roi
 from ..models.model import Model
-from ._pipeline import Lane, TileWriter, fetch, launches_now, make_tile_reader, run_pipelined
+from ._pipeline import Lane, TileWriter, dispatch_lanes, fetch, make_tile_reader, run_pipelined
 from .scan import forward_uint8, tile_rois
 
 
@@ -83,12 +86,8 @@ class ShardedPredictor:
             return arrs + arrs[-1:] * (B - len(arrs))  # pad; the extras are not written
 
         def dispatch(arrs):
-            handles = []
-            for k, (lane, arr) in enumerate(zip(self.lanes, arrs)):
-                n0 = launches_now()
-                handles.append(lane.run(arr, lambda x, m=lane.model: forward_uint8(m, x, self._is_image)))
-                launches[k] += launches_now() - n0
-            return handles
+            fns = [lambda x, m=lane.model: forward_uint8(m, x, self._is_image) for lane in self.lanes]
+            return dispatch_lanes(self.lanes, arrs, fns, launches)
 
         def drain(batch, handles):
             for wroi, handle in zip(batch, handles):

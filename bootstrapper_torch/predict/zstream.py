@@ -40,7 +40,7 @@ from ..core.geometry import Coordinate, Roi
 from ..models.model import Model
 from ..models.unet import compute_output_shape
 from ..models.zstream import stream_eligible
-from ._pipeline import Lane, TileWriter, fetch, launches_now, read_inputs, run_pipelined
+from ._pipeline import Lane, TileWriter, dispatch_lanes, fetch, read_inputs, run_pipelined
 from .scan import DEFAULT_DEVICE_BYTES, device_memory_bytes, normalize_on_device, quantize, tile_rois
 
 #: device memory a steady step takes per effective input voxel
@@ -347,18 +347,15 @@ class ZStreamPredictor:
 
         def dispatch(read):
             is_warm, arrs = read
-            handles = []
-            for k, (lane, arr) in enumerate(zip(self.lanes, arrs)):
-                def run(x, k=k):
-                    if is_warm:
-                        states[k] = None  # drop the last column's caches first
-                    outs, states[k] = self.step(x, states[k], lane=k)
-                    return outs
 
-                n0 = launches_now()
-                handles.append(lane.run(arr, run))  # queued; waited for in drain
-                launches[k] += launches_now() - n0
-            return handles
+            def run(x, k):
+                if is_warm:
+                    states[k] = None  # drop the last column's caches first
+                outs, states[k] = self.step(x, states[k], lane=k)
+                return outs
+
+            fns = [lambda x, k=k: run(x, k) for k in range(B)]
+            return dispatch_lanes(self.lanes, arrs, fns, launches)  # queued; waited for in drain
 
         def drain(item, handles):
             _, wrois, clips = item

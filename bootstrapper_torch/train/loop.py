@@ -44,7 +44,8 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "TrainState", "create_train_state", "make_train_step", "loss_fn", "save_checkpoint",
     "load_checkpoint", "latest_checkpoint", "make_mesh", "mesh_backend", "MeshRank", "init_mesh",
-    "spawn_mesh", "mesh_slab", "rank_slab", "slab_counts", "check_mesh_slabs", "broadcast_state", "broadcast_batch", "shard_train_step",
+    "spawn_mesh", "MeshWindow", "mesh_windows", "seam_margin", "rank_slab", "slab_counts", "broadcast_state",
+    "broadcast_batch", "shard_train_step",
 ]
 
 
@@ -85,10 +86,14 @@ def _center_crop_like(x, ref):
 
 
 def loss_fn(model: Model, batch: dict, counts: Optional[dict] = None):
-    """The loss of ``batch`` (``{"input", "targets", "weights"}``);
-    ``counts``: each output's normaliser, where not the batch's own
+    """The loss of ``batch`` (``{"input", "targets", "weights"}``, and, for
+    a mesh rank's window, ``keep``: the ``(offset, rows)`` of the outputs'
+    first spatial axis that the loss takes, ``rank_slab``); ``counts``:
+    each output's normaliser, where not the batch's own
     (``models.model.weighted_mse_loss``)."""
     preds = model(batch["input"])
+    if "keep" in batch:
+        preds = {k: v.narrow(1, *batch["keep"]) for k, v in preds.items()}
     targets = {k: _center_crop_like(batch["targets"][k], preds[k]) for k in preds}
     weights = {k: _center_crop_like(batch["weights"][k], preds[k]) for k in preds}
     return multi_output_loss(preds, targets, weights, counts)
@@ -315,29 +320,121 @@ def spawn_mesh(fn, grid: list, args: tuple = ()):
             return pickle.load(f)
 
 
-def mesh_slab(x: torch.Tensor, dims: int, space: int, s: int, out_rows: int, ctx: int = 0) -> torch.Tensor:
-    """Space rank ``s``'s rows of a batch tensor along the net's first
-    spatial axis (axis ``x.dim() - 1 - dims``: z of a 3D tensor, y of a 2D
-    one's): its ``out_rows // space`` output rows from row ``s * own``, with
-    ``ctx`` rows of context on each side (an input's)."""
-    own = out_rows // space
-    return x.narrow(x.dim() - 1 - dims, s * own, own + 2 * ctx)
+@dataclasses.dataclass(frozen=True)
+class MeshWindow:
+    """What one space rank computes along the net's first spatial axis (z of
+    a 3D net, y of a 2D one): the output rows ``[start, start + rows)`` of
+    the whole training tile's output, from its input rows ``[start, start +
+    rows + context)`` (``context``: input rows less output rows), of which
+    it keeps its own ``own_rows`` rows from ``own`` on."""
+
+    start: int
+    rows: int
+    own: int
+    own_rows: int
 
 
-def check_mesh_slabs(unet_cfg, in_tile, out_tile, grid: list) -> None:
-    """Raise before the first step where the space axis cannot split the
-    training tile into slabs that are valid net inputs (the space ranks of
-    a data group take overlapping slabs of the net's first spatial axis)."""
-    from ..predict.spatial import slab_is_valid
+def _edge_reach(unet_cfg, n_in: int) -> tuple:
+    """``(output rows, reach at the start, reach at the end)`` of the net
+    along its first spatial axis for ``n_in`` input rows: the output rows,
+    counted from each end, that the resampling upsample's clamp at the
+    input's edge reaches.  ``align_corners=False`` linear resampling by
+    ``f`` clamps the ``f // 2`` outer rows and spreads ``d`` rows that
+    differ into ``f * d + f // 2``; a transposed upsample spreads them into
+    ``f * d`` and clamps nothing; each valid conv keeps the count from its
+    own edge; a centre crop removes its rows.  Raises ``ValueError`` where
+    ``n_in`` is no valid input length."""
+    L = unet_cfg.num_levels
 
-    space = len(grid[0])
-    if space > 1 and (out_tile[0] % space or not slab_is_valid(unet_cfg, in_tile, out_tile, 0, space)):
+    def convs(n, kernels):
+        n -= sum(k[0] - 1 for k in kernels)
+        if n <= 0:
+            raise ValueError("input too small")
+        return n
+
+    def rec(level, n):
+        i = L - level - 1
+        n = convs(n, unet_cfg.kernel_size_down[i])
+        if level == 0:
+            return n, 0, 0
+        f = unet_cfg.downsample_factors[i][0]
+        if n % f:
+            raise ValueError(f"{n} rows not divisible by {f}")
+        m, rs, re = rec(level - 1, n // f)
+        up = m * f
+        if unet_cfg.constant_upsample:
+            rs, re = f * rs + f // 2, f * re + f // 2
+        else:
+            rs, re = f * rs, f * re
+        cc = sum(k[0] - 1 for k in unet_cfg.kernel_size_up[i])
+        fc = unet_cfg.crop_factors[i][0]
+        t = ((up - cc) // fc) * fc + cc
+        off = (up - t) // 2
+        return convs(t, unet_cfg.kernel_size_up[i]), max(0, rs - off), max(0, re - (up - t - off))
+
+    return rec(L - 1, n_in)
+
+
+def seam_margin(unet_cfg, in_rows: int) -> int:
+    """Output rows next to a window's inner edge that differ from the whole
+    tile's (``_edge_reach`` of an ``in_rows`` input): 5 for the 2D setups
+    at their (196, 196) tile, 0 for a net that never resamples its first
+    axis or upsamples by transposed convs."""
+    _, rs, re = _edge_reach(unet_cfg, in_rows)
+    return max(rs, re)
+
+
+def mesh_windows(unet_cfg, in_tile, out_tile, space: int) -> list:
+    """Each space rank's ``MeshWindow`` of a training tile ``in_tile ->
+    out_tile`` split ``space`` ways along the net's first spatial axis.
+
+    Rank ``s`` owns the output rows ``[s * own, (s + 1) * own)``, ``own =
+    out // space``.  Its window starts on the pooling lattice (a multiple
+    of the axis's downsample factors' product from the tile's origin), has
+    a valid input length, reaches the tile's own edges where it meets them
+    (so the tile's edge effects are reproduced), and reaches past every
+    inner seam far enough that the upsample's clamp at its edge
+    (``_edge_reach``) misses the rank's own rows: its own rows are then the
+    whole tile's.  A net that never pools the axis gets the plain slabs
+    (own rows plus the context).  Raises only where the space axis does not
+    divide the axis's input and output (``make_mesh`` never factorises so)."""
+    n_in, n_out = int(in_tile[0]), int(out_tile[0])
+    if n_in % space or n_out % space:
         raise ValueError(
-            f"mesh training at ({len(grid)} data, {space} space) splits the training tile "
-            f"{tuple(in_tile)} -> {tuple(out_tile)} along its first axis into slabs that leave the net's "
-            "pooling lattice; bootstrapper_torch does not shard such axes as the JAX package's GSPMD does "
-            "(ROADMAP A3): use a factorisation with space 1"
+            f"a space axis of {space} does not divide the training tile's first axis "
+            f"({n_in} -> {n_out}); make_mesh factorises it only by a divisor of both"
         )
+    ctx = n_in - n_out
+    lattice = 1
+    for f in unet_cfg.downsample_factors:
+        lattice *= f[0]
+
+    def reach(rows):
+        try:
+            got, rs, re = _edge_reach(unet_cfg, rows + ctx)
+        except ValueError:
+            return None
+        return (rs, re) if got == rows else None
+
+    own = n_out // space
+    windows = []
+    for s in range(space):
+        a, b = s * own, (s + 1) * own
+        start, need = a - a % lattice, b
+        while True:
+            rows = next((r for r in range(need - start, n_out - start + 1) if reach(r) is not None), None)
+            if rows is None:  # no valid length from here: start a lattice step earlier
+                start -= lattice
+                continue
+            rs, re = reach(rows)
+            if start > 0 and a - start < rs:
+                start = max(0, start - lattice)
+            elif start + rows < n_out and start + rows - b < re:
+                need = start + rows + 1
+            else:
+                break
+        windows.append(MeshWindow(start, rows, a - start, own))
+    return windows
 
 
 def _state_tensors(state: TrainState) -> list:
@@ -399,18 +496,24 @@ def _get(batch: dict, key: tuple):
 
 
 def rank_slab(batch: dict, unet_cfg, dims: int, space: int, s: int) -> dict:
-    """Space rank ``s``'s slab of its data group's batch: along the net's
-    first spatial axis, its ``out // space`` output rows of the targets and
-    weights (centre-cropped to the net's output first) and of the input
-    with the net's context on each side (``mesh_slab``)."""
+    """Space rank ``s``'s share of its data group's batch along the net's
+    first spatial axis: the input rows of its window (``mesh_windows``),
+    and its own output rows of the targets and weights (centre-cropped to
+    the net's output first); ``keep`` says which rows of the window's
+    output those are (``loss_fn``)."""
     x = batch["input"]
-    spatial = tuple(x.shape[x.dim() - 1 - dims : -1])
+    ax = x.dim() - 1 - dims
+    spatial = tuple(x.shape[ax:-1])
     out_shape = compute_output_shape(unet_cfg, spatial)
-    ctx = (spatial[0] - out_shape[0]) // 2
-    slab = {"input": mesh_slab(x, dims, space, s, out_shape[0], ctx), "targets": {}, "weights": {}}
+    win = mesh_windows(unet_cfg, spatial, out_shape, space)[s]
+    slab = {
+        "input": x.narrow(ax, win.start, win.rows + spatial[0] - out_shape[0]),
+        "targets": {}, "weights": {}, "keep": (win.own, win.own_rows),
+    }
     for part in ("targets", "weights"):
         for k, t in batch[part].items():
-            slab[part][k] = mesh_slab(_crop_spatial(t, out_shape), dims, space, s, out_shape[0])
+            t = _crop_spatial(t, out_shape)
+            slab[part][k] = t.narrow(t.dim() - 1 - dims, win.start + win.own, win.own_rows)
     return slab
 
 
@@ -422,12 +525,13 @@ def slab_counts(slab: dict) -> torch.Tensor:
 def shard_train_step(mesh: MeshRank, unet_cfg, dims: int) -> Callable:
     """The sharded step of ``mesh``'s rank: ``(state, group_batch) ->
     (state, {"loss": loss})``, ``group_batch`` being its data group's share
-    of the batch (``broadcast_batch``).  The rank takes its slab
-    (``rank_slab``), its loss over the whole batch's count of ``weights >
-    0`` (the ranks' counts summed), sums the gradients over all ranks, and
-    takes the same Adam step as every other rank.  The loss returned is the
-    ranks' sum: the one-device loss, as the slabs' outputs are the rows of
-    the whole output."""
+    of the batch (``broadcast_batch``).  The rank runs its window
+    (``rank_slab``), takes its loss over its own output rows and the whole
+    batch's count of ``weights > 0`` (the ranks' counts summed), sums the
+    gradients over all ranks, and takes the same Adam step as every other
+    rank.  The loss returned is the ranks' sum: the one-device loss, as the
+    ranks' own rows are the rows of the whole output, each computed as the
+    whole tile computes it (``mesh_windows``)."""
     import torch.distributed as dist
 
     _, s = mesh.coords

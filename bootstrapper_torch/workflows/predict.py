@@ -13,12 +13,11 @@ declared inputs by name), which stay in [0, 1] where raw is scaled to
 (``predict/scan.py:auto_shape_increase``), before the tile is fitted to the
 volume and before streaming is considered, so that a tile covering the
 volume's depth is tiled, not streamed.  ``BS_INT8=1`` predicts with int8
-convs (``ops/quant.py``) on every path but the batch-sharded one, as the JAX
-package does: each activation scale is taken over the tensor the JAX graph
-would quantize (a batch of tiles, one stream step, one slab of a spatially
-split tile).  A batch spread over devices would need each conv's amax
-exchanged across them (the JAX package's global batch), so
-``sharded="batch"`` refuses the flag.
+convs (``ops/quant.py``) on every path, as the JAX package does: each
+activation scale is taken over the tensor the JAX graph would quantize (a
+batch of tiles, one stream step, one slab of a spatially split tile, and
+over a batch spread across devices, the whole batch: the devices exchange
+their amaxes at every conv-pass input, ``quant.ScaleGroup``).
 
 As in the JAX package, a volume deeper than one tiled z pass is streamed
 in z (``predict/zstream.py``) when the net is 3D and never pools z; other
@@ -45,7 +44,6 @@ from ..core.geometry import Roi
 from ..models.model import Model
 from ..models.weights import latest_checkpoint, load_checkpoint, load_params
 from ..models.zstream import stream_eligible
-from ..ops.quant import int8_enabled
 from ..predict.scan import (
     Predictor,
     auto_shape_increase,
@@ -252,16 +250,13 @@ def run_prediction(
     a batch of tiles, one per device (``predict/sharded.py``);
     ``"spatial"`` splits each tile over the devices
     (``predict/spatial.py``), at ``spatial_shape_increase``'s tile unless
-    ``auto_tile`` picks one.  Unsharded, a link runs on the first device."""
+    ``auto_tile`` picks one.  Unsharded, a link runs on the first device.
+    Under ``BS_INT8=1``, ``"batch"`` takes each int8 activation scale over
+    the tiles or columns of all devices at once (``quant.ScaleGroup``), as
+    the JAX package's graph over the sharded batch does, and ``"spatial"``
+    one per slab, as the JAX package's ``shard_map`` does."""
     if sharded not in (None, "batch", "spatial"):
         raise ValueError(f"sharded must be None, 'batch' or 'spatial', not {sharded!r}")
-    if sharded == "batch" and int8_enabled():
-        raise ValueError(
-            "BS_INT8=1 with sharded='batch': the JAX package takes each int8 activation "
-            "scale over the batch of all devices, and the port's devices run their tiles "
-            "apart (one scale per device); predict unsharded or sharded='spatial', or "
-            "unset BS_INT8 (ROADMAP Queue C)"
-        )
     devices = resolve_devices(device)
     if len(devices) > 1 and not sharded:
         logger.warning("%d devices given, none sharded over: predicting on %s", len(devices), devices[0])

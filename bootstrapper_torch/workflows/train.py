@@ -51,12 +51,12 @@ from ..train.loop import (
     MeshRank,
     broadcast_batch,
     broadcast_state,
-    check_mesh_slabs,
     create_train_state,
     latest_checkpoint,
     load_checkpoint,
     make_mesh,
     make_train_step,
+    mesh_windows,
     save_checkpoint,
     shard_train_step,
     spawn_mesh,
@@ -161,10 +161,12 @@ def _run_mesh_training(cfg: dict, devices: list, compute_dtype) -> dict:
         len(devices), batch_size=batch_size,
         spatial=math.gcd(int(nc["input_shape"][0]), int(nc["output_shape"][0])), devices=devices,
     )
-    check_mesh_slabs(unet_config(nc), nc["input_shape"], nc["output_shape"], grid)
+    windows = mesh_windows(unet_config(nc), nc["input_shape"], nc["output_shape"], len(grid[0]))
     logger.info(
-        "mesh training over (%d data, %d space) = %s (batch %d)",
+        "mesh training over (%d data, %d space) = %s (batch %d; first-axis windows, output rows "
+        "[start, end) of which own [start, end): %s)",
         len(grid), len(grid[0]), [[str(d) for d in row] for row in grid], batch_size,
+        [((w.start, w.start + w.rows), (w.start + w.own, w.start + w.own + w.own_rows)) for w in windows],
     )
     return spawn_mesh(_mesh_rank, grid, args=(cfg, compute_dtype, batch_size))
 

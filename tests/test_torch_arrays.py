@@ -129,14 +129,83 @@ def test_prepare_ds_append_keeps_the_array(tmp_path):
     assert new.to_ndarray().sum() == 0  # a missing array is created
 
 
+INT8_VOXEL = (40, 4, 4)
+INT8_ROI = (8 * 40, 32 * 4, 40 * 4)  # the volume's first 8 sections' first 32 rows: 40 tiles
+
+
+def _int8_setup(root):
+    """The raw volume and tiny 3d_affs net ((24, 48, 48) -> (4, 8, 8)) of
+    ``tests/test_torch_quant.py``'s predictor tests, whose int8 bound against
+    the JAX package's jitted graph they set; a numpy-seeded checkpoint at
+    iteration 1 and a predict TOML whose output container is ``root``'s."""
+    from bootstrapper_torch.models import init_params_numpy, save_checkpoint
+    from bootstrapper_torch.models.zoo import get_net_config
+    from bootstrapper_torch.utils import tomlio
+
+    nc = get_net_config("3d_affs")
+    nc.update(
+        num_fmaps=2, fmap_inc_factor=2, input_shape=[24, 48, 48], output_shape=[4, 8, 8], shape_increase=[0, 0, 0],
+        downsample_factors=[[1, 2, 2]] * 2,
+        kernel_size_down=[[[3, 3, 3], [3, 3, 3]]] * 3, kernel_size_up=[[[3, 3, 3], [3, 3, 3]]] * 2,
+    )
+    nc["outputs"] = {"3d_affs": {"dtype": "uint8", "dims": 3, "neighborhood": [[-1, 0, 0], [0, -1, 0], [0, 0, -1]],
+                                 "grow_boundary": 1}}
+    setup = root / "setup"
+    setup.mkdir()
+    (setup / "net_config.json").write_text(json.dumps(nc))
+    params = init_params_numpy(nc, 0)
+    save_checkpoint(str(setup), params, 1)
+    shape = (22, 60, 40)
+    raw = A.prepare_ds(str(root / "v.zarr" / "raw"), shape, (0, 0, 0), INT8_VOXEL, np.uint8)
+    raw[raw.roi] = np.random.default_rng(22).integers(0, 255, shape, dtype=np.uint8)
+    chain = [{"setup_dir": str(setup), "output_prefix": "pred", "checkpoint_iteration": 1}]
+    tomlio.dump({"predict": {"v": {"raw_dataset": raw.path, "output_container": str(root / "out.zarr"),
+                                   "chain": chain}}}, str(root / "predict.toml"))
+    return nc, params, raw, str(root / "predict.toml")
+
+
 def test_run_prediction_refuses_int8(tmp_path, monkeypatch):
-    """``BS_INT8=1`` predicts in int8 on every path but the batch-sharded
-    one, whose devices would each take their own activation scales where
-    the JAX package takes one over the whole batch: that one refuses, before
-    it reads the config, rather than predict with other scales."""
+    """``BS_INT8=1`` with ``sharded="batch"`` over two logical devices, no
+    longer refused: each conv-pass input's scale is taken over the batch of
+    both devices' tiles, so the affinities equal, uint8 for uint8, the
+    one-device run two tiles a batch, and the JAX package's
+    ``ShardedPredictor`` on two virtual devices within the int8 bound of
+    ``tests/test_torch_quant.py`` (+-1 on under 1% of voxels; fp32
+    compute)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from bootstrapper_tpu.models.model import Model as JModel
+    from bootstrapper_tpu.predict.scan import prepare_prediction_outputs as jax_outputs
+    from bootstrapper_tpu.predict.sharded import ShardedPredictor as JShardedPredictor
+
     monkeypatch.setenv("BS_INT8", "1")
-    with pytest.raises(ValueError, match="Queue C"):
-        run_prediction(str(tmp_path / "predict.toml"), device=["cpu", "cpu"], sharded="batch")
+    monkeypatch.setenv("BS_ZSTREAM", "0")  # a batch of tiles, not lockstep streams
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        got = {}
+        for name, kw in (("sharded", {"device": ["cpu", "cpu"], "sharded": "batch"}),
+                         ("batch_tiles_2", {"device": "cpu", "batch_tiles": 2})):
+            (tmp_path / name).mkdir()
+            nc, params, raw, toml = _int8_setup(tmp_path / name)
+            stats = run_prediction(toml, compute_dtype=torch.float32, roi_offset=(0, 0, 0),
+                                   roi_shape=INT8_ROI, **kw)["v/pred"]
+            got[name] = A.open_ds(str(tmp_path / name / "out.zarr" / "pred" / "3d_affs")).to_ndarray()
+        assert stats["tiles"] == 2 * 4 * 5
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_array_equal(got["sharded"], got["batch_tiles_2"])
+    jm = JModel(nc)
+    jsp = JShardedPredictor(jm, params, INT8_VOXEL, devices=jax.devices()[:2], compute_dtype=jnp.float32)
+    jraw = J.open_ds(raw.path)
+    jroi = JRoi((0, 0, 0), INT8_ROI)
+    jouts = jax_outputs(str(tmp_path / "jax.zarr"), jm, jroi, INT8_VOXEL, predictor=jsp)
+    jsp.predict(jraw, jouts, jroi)
+    want = jouts["3d_affs"].to_ndarray()
+    diff = np.abs(got["sharded"].astype(int) - want.astype(int))
+    assert got["sharded"].shape == want.shape and diff.max() <= 1 and (diff != 0).mean() < 1e-2
 
 
 @pytest.mark.parametrize("pad_mode", ["reflect", "constant"])

@@ -324,28 +324,41 @@ def test_aliases_resolve_like_jax(alias):
 
 
 REFUSALS = {
-    # int8 over a batch spread across devices (one scale per device, where
-    # the JAX package takes one over the batch): a recorded departure
-    "int8": (["predict", "<round>/02_predict.toml", "--sharded"], "Queue C"),
+    # a configuration the port once refused and now runs as the JAX package
+    # does -> (the multi-device command's case of _multi_device_run, the
+    # one-device case it must equal): int8 over a batch spread across
+    # devices takes each scale over the whole batch, as a one-device batch
+    # of as many tiles does
+    "int8": ("sharded_batch", "batch_tiles_2"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_refusals_name_their_queue_item(rounds, case, monkeypatch):
-    args, word = REFUSALS[case]
-    if case == "int8":
-        monkeypatch.setenv("BS_INT8", "1")
-    round_dir = str(rounds["port"]["root"] / "round_1")
-    args = ["--device", "cpu"] + [a.replace("<round>", round_dir) for a in args]
-    res = CliRunner().invoke(tcli, args)
-    assert res.exit_code != 0
-    assert word in (res.output + repr(res.exception))
+def test_refusals_name_their_queue_item(rounds, case, monkeypatch, tmp_path, request):
+    """Each configuration of ``REFUSALS`` runs through the command line and
+    equals its one-device counterpart (uint8-equal): ``BS_INT8=1 --device
+    cpu,cpu predict --sharded`` (tiles, one per device) and ``BS_INT8=1
+    --device cpu predict --batch-tiles 2`` (fp32 compute), on the volume's
+    first 8 sections."""
+    multi, one = REFUSALS[case]
+    monkeypatch.setattr(port_workflow, "run_prediction",
+                        functools.partial(port_workflow.run_prediction, compute_dtype=torch.float32))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
+    monkeypatch.setenv("BS_INT8", "1")
+    monkeypatch.setenv("BS_ZSTREAM", "0")  # the batch of tiles, not lockstep streams
+    two = _multi_device_run(rounds, tmp_path, multi, "cpu,cpu", sections=8)
+    want = _multi_device_run(rounds, tmp_path, one, "cpu", sections=8)
+    assert two.shape == want.shape == (3, 8, 96, 96)
+    np.testing.assert_array_equal(two, want)
 
 
-def _multi_device_run(rounds, tmp_path, case: str, device: str):
+def _multi_device_run(rounds, tmp_path, case: str, device: str, sections=None):
     """One multi-device command on a copy of the port's round (its setup and
     checkpoint), on ``device``; returns what it wrote: the affinities, or
-    the trained checkpoint's parameters and the final loss."""
+    the trained checkpoint's parameters and the final loss.  ``sections``:
+    predict only the volume's first that many sections (all by default)."""
     src = rounds["port"]["root"] / "round_1"
     work = tmp_path / device.replace(",", "_")
     setup = work / "setup"
@@ -381,6 +394,13 @@ def _multi_device_run(rounds, tmp_path, case: str, device: str):
     args = ["predict", str(work / "predict.toml")]
     if case == "sharded_batch":
         args += ["--sharded"]
+    if case == "batch_tiles_2":
+        args += ["--batch-tiles", "2"]
+    if sections is not None:
+        (vol,) = cfg["predict"].values()
+        raw = A.open_ds(vol["raw_dataset"])
+        shape = (sections * raw.voxel_size[0], *raw.roi.shape[1:])
+        args += ["--roi-offset", *map(str, raw.roi.begin), "--roi-shape", *map(str, shape)]
     if case == "sharded_spatial":  # one auto tile for the volume, split over the devices
         args += ["-s", "spatial", "--auto-tile"]
     invoke("port", ["--device", device, *args])

@@ -1,5 +1,5 @@
-"""The port's mesh training (``train/loop.py``: ``make_mesh``, the slabs,
-the sharded step over ``torch.distributed``) against the JAX package's
+"""The port's mesh training (``train/loop.py``: ``make_mesh``, the space
+ranks' windows, the sharded step over ``torch.distributed``) against the JAX package's
 ``make_mesh`` and ``shard_train_step`` on the virtual devices that
 ``tests/conftest.py`` forces, and against the one-device step, on the CPU
 in fp32.
@@ -13,7 +13,10 @@ within atol 5e-4, the bound of ``tests/test_mesh_train.py``.  The
 parameters' bound alone would not see a wrong gradient: Adam's first
 update moves each parameter by at most the learning rate, whatever the
 gradient, so the gradient and the moment are what hold the all_reduce,
-and the parameters what hold the update.
+and the parameters what hold the update.  A 2D net's windows (its y
+pooled x8) hold their own rows to the whole tile's forward within 1e-6 in
+fp32, and its spawned steps at (1,2), (2,2) and (1,4) hold the loss,
+gradient and first moment as above.
 """
 
 import jax
@@ -29,8 +32,6 @@ from bootstrapper_torch.models import weights as W
 from bootstrapper_torch.models.model import unet_config
 from bootstrapper_torch.models.zoo import get_net_config
 from bootstrapper_torch.train import loop as L
-from bootstrapper_torch.workflows import run_training
-from bootstrapper_torch.utils import tomlio
 from bootstrapper_tpu.models import Model as JModel
 from bootstrapper_tpu.train import loop as JL
 
@@ -180,20 +181,154 @@ def test_spawned_step_matches_one_device_and_jax(grid, monkeypatch):
         np.testing.assert_allclose(got["params"][k], jflat[k], rtol=0, atol=5e-4)
 
 
-def test_2d_space_split_raises_naming_a3(tmp_path):
-    """A 2D net's first axis is pooled x8: four space ranks would leave the
-    lattice, which the port refuses before its first step (the JAX package
-    shards it through GSPMD)."""
+def _net_2d(**kw):
+    """A narrow 2d_mtlsd (both heads, the x8 pooling of y and x)."""
     nc = get_net_config("2d_mtlsd")
+    nc.update(num_fmaps=2, fmap_inc_factor=2, **kw)
+    return nc
+
+
+def _whole_and_windows(nc, space, seed=0):
+    """The whole tile's forward and each space rank's window forward (fp32),
+    on one random input of the config's tile."""
+    model = load_params(Model(nc, compute_dtype=torch.float32), init_params_numpy(nc, seed))
+    cfg = model.unet_config
+    x = torch.from_numpy(
+        np.random.default_rng(seed).standard_normal((1, *nc["input_shape"], cfg.in_channels)).astype(np.float32))
+    ctx = nc["input_shape"][0] - nc["output_shape"][0]
+    with torch.no_grad():
+        whole = model(x)
+        windows = L.mesh_windows(cfg, nc["input_shape"], nc["output_shape"], space)
+        outs = [model(x.narrow(1, w.start, w.rows + ctx)) for w in windows]
+    return model, x, whole, windows, outs
+
+
+def _own_rows_diff(whole, windows, outs) -> float:
+    return max(
+        float((o[k].narrow(1, w.own, w.own_rows) - whole[k].narrow(1, w.start + w.own, w.own_rows)).abs().max())
+        for w, o in zip(windows, outs) for k in o
+    )
+
+
+def test_2d_space_split_raises_naming_a3():
+    """A 2D net's first axis is pooled x8, and the (1, 4) factorisation that
+    ``make_mesh`` gives its published tile leaves the pooling lattice at
+    every seam: the space ranks train windows on the lattice instead (no
+    refusal), each reaching the seam margin of 5 output rows past its own 26
+    rows, and their own rows are the whole tile's forward (fp32, 1e-6)."""
+    nc = _net_2d()
     grid = L.make_mesh(4, batch_size=1, spatial=4, devices=["cpu"] * 4)
     assert (len(grid), len(grid[0])) == (1, 4)
-    with pytest.raises(ValueError, match="A3"):
-        L.check_mesh_slabs(unet_config(nc), nc["input_shape"], nc["output_shape"], grid)
-    setup = tmp_path / "2d_mtlsd"
-    setup.mkdir()
-    (setup / "net_config.json").write_text(__import__("json").dumps(nc))
-    samples = [{"raw": str(tmp_path / "none.zarr/raw"), "labels": str(tmp_path / "none.zarr/labels")}]
-    tomlio.dump({"train": {"setup_dir": str(setup), "samples": samples, "batch_size": 1, "mesh": True}},
-                str(tmp_path / "t.toml"))
-    with pytest.raises(ValueError, match=r"\(1 data, 4 space\).*A3"):
-        run_training(str(tmp_path / "t.toml"), device="cpu,cpu,cpu,cpu")
+    assert L.seam_margin(unet_config(nc), 196) == 5
+    _, _, whole, windows, outs = _whole_and_windows(nc, 4)
+    assert [(w.start, w.rows, w.own, w.own_rows) for w in windows] == [
+        (0, 32, 0, 26), (16, 48, 10, 26), (40, 48, 12, 26), (72, 32, 6, 26)]
+    assert [w.start + w.own for w in windows] == [0, 26, 52, 78]
+    assert _own_rows_diff(whole, windows, outs) <= 1e-6
+
+
+WINDOW_CASES = [("resize", 2), ("transposed", 2), ("transposed", 4), ("3d", 2)]
+
+
+@pytest.mark.parametrize("up,space", WINDOW_CASES, ids=[f"{u}_space{s}" for u, s in WINDOW_CASES])
+def test_windows_own_rows_equal_the_whole_tile(up, space):
+    """Each window starts on the pooling lattice, has a valid input length,
+    and its own rows equal the whole tile's forward (fp32, 1e-6); a
+    transposed upsample has no reach (margin 0), and a 3D net that never
+    pools z keeps the plain slabs (its own rows and the context)."""
+    if up == "3d":
+        nc = _net()
+    else:
+        nc = _net_2d(input_shape=[148, 100], output_shape=[56, 8], constant_upsample=up == "resize")
+    cfg = unet_config(nc)
+    _, _, whole, windows, outs = _whole_and_windows(nc, space)
+    lattice = int(np.prod([f[0] for f in cfg.downsample_factors]))
+    n_out = nc["output_shape"][0]
+    assert [w.start + w.own for w in windows] == list(range(0, n_out, n_out // space))
+    assert all(w.start % lattice == 0 and w.start + w.rows <= n_out for w in windows)
+    margin = L.seam_margin(cfg, nc["input_shape"][0])
+    assert margin == {"resize": 5, "transposed": 0, "3d": 0}[up]
+    if up != "resize":
+        assert all(w.rows == w.own_rows == n_out // space for w in windows) or lattice > 1
+    if up == "3d":
+        assert [(w.start, w.rows) for w in windows] == [(s * n_out // space, n_out // space) for s in range(space)]
+    assert _own_rows_diff(whole, windows, outs) <= 1e-6
+
+
+def test_window_without_seam_margin_differs():
+    """The margin is needed: rank 1 of 2 owns the output rows [28, 56), and
+    a window on the x8 lattice from row 24 (4 rows short of the margin of
+    5) differs from the whole tile in its first own row; only the 5 rows
+    next to its inner edge differ (fp32: the others are 0 apart)."""
+    nc = _net_2d(input_shape=[148, 100], output_shape=[56, 8])
+    model, x, whole, _, _ = _whole_and_windows(nc, 2)
+    with torch.no_grad():
+        out = model(x.narrow(1, 24, 32 + 92))
+    diff = torch.stack([(out[k] - whole[k].narrow(1, 24, 32)).abs().amax(dim=(0, 2, 3)) for k in out]).amax(0)
+    assert float(diff[4]) > 1e-6  # the first own row
+    assert float(diff[5:].max()) == 0.0
+
+
+def _small_net_2d():
+    """A two-level 2d_mtlsd for the spawned steps, whose JAX step compiles
+    in a fraction of the three-level net's time: y pooled x4, (72, 44) ->
+    (32, 4), a seam margin of 3."""
+    return _net_2d(input_shape=[72, 44], output_shape=[32, 4], downsample_factors=[[2, 2], [2, 2]],
+                   kernel_size_down=[[[3, 3], [3, 3]]] * 3, kernel_size_up=[[[3, 3], [3, 3]]] * 2)
+
+
+def _batch_2d(nc, n, seed):
+    rng = np.random.default_rng(seed)
+    out = nc["output_shape"]
+    heads = {k: v["dims"] for k, v in nc["outputs"].items()}
+    return {
+        "input": rng.standard_normal((n, *nc["input_shape"], 3)).astype(np.float32),
+        "targets": {k: rng.random((n, *out, c)).astype(np.float32) for k, c in heads.items()},
+        "weights": {k: (rng.random((n, *out, c)) > 0.3).astype(np.float32) for k, c in heads.items()},
+    }
+
+
+MESH_2D = [(1, 2), (2, 2), (1, 4)]
+
+
+@pytest.mark.parametrize("grid", MESH_2D, ids=[f"{d}data_{s}space" for d, s in MESH_2D])
+def test_2d_mesh_step_matches_one_device_and_jax(grid, monkeypatch):
+    """A 2D net whose space axis splits its pooled y: one spawned step
+    over ``data * space`` gloo ranks (windows) against the one-device step
+    and the JAX package's ``shard_train_step`` at the same factorisation
+    (GSPMD), the loss within 1e-5, the gradient that the step took and
+    Adam's first moment within GRAD_ATOL."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    data, space = grid
+    nc = _small_net_2d()
+    assert L.seam_margin(unet_config(nc), 72) == 3
+    assert all(w.rows < 32 for w in L.mesh_windows(unet_config(nc), (72, 44), (32, 4), space))
+    params = init_params_numpy(nc, 0)
+    batch = _batch_2d(nc, data, 5)
+    mesh_grid = L.make_mesh(data * space, data=data, devices=["cpu"] * (data * space))
+    assert (len(mesh_grid), len(mesh_grid[0])) == grid
+    got = L.spawn_mesh(one_sharded_step, mesh_grid, args=(nc, params, batch, LR))
+
+    model = load_params(Model(nc, compute_dtype=torch.float32), params)
+    state = L.TrainState(0, model, L.make_optimizer(model, LR))
+    state, metrics = L.make_train_step()(state, _torch(batch))
+    assert got["loss"] == pytest.approx(float(metrics["loss"]), abs=1e-5)
+    want_grads = {k: W.to_jax_layout(model, k, p.grad.numpy()) for k, p in W.params_in_leaf_order(model)}
+    assert max(float(np.abs(g).max()) for g in want_grads.values()) > 100 * GRAD_ATOL  # a gradient to hold
+    for k in want_grads:
+        np.testing.assert_allclose(got["grads"][k], want_grads[k], rtol=0, atol=GRAD_ATOL, err_msg=k)
+        np.testing.assert_allclose(got["exp_avg"][k], 0.1 * want_grads[k], rtol=0, atol=0.1 * GRAD_ATOL, err_msg=k)
+
+    jm = JModel(nc, compute_dtype=jnp.float32)
+    tx = optax.adam(LR)
+    jstate = JL.TrainState(jnp.zeros((), jnp.int32), params, tx.init(params))
+    mesh = JL.make_mesh(data * space, data=data)
+    assert mesh.devices.shape == grid
+    jitted, place = JL.shard_train_step(JL.make_train_step(jm, tx), mesh)
+    with mesh:
+        jstate, jmetrics = jitted(*place(jstate, batch))
+    assert got["loss"] == pytest.approx(float(jmetrics["loss"]), abs=1e-5)
+    jmu = W._flatten(jax.tree_util.tree_map(np.asarray, jstate.opt_state[0].mu))
+    for k in want_grads:
+        np.testing.assert_allclose(got["exp_avg"][k], jmu[k], rtol=0, atol=0.1 * GRAD_ATOL, err_msg=k)
+        np.testing.assert_allclose(got["grads"][k], jmu[k] / 0.1, rtol=0, atol=GRAD_ATOL, err_msg=k)

@@ -458,6 +458,41 @@ def test_zstream_int8_matches_jax(volume, monkeypatch):
     _assert_close_uint8(got, want)
 
 
+def test_sharded_lanes_share_every_scale(volume, monkeypatch):
+    """``ShardedPredictor`` over two logical CPU devices under ``BS_INT8=1``
+    with the recorder on: at every quantization point both lanes quantize
+    with one scale, bit for bit ``max(lane amaxes) / 127`` as the plain
+    version computes it; the lanes run as many convs, each of its own tile;
+    and the affinities are the one-device two-tile batch's, uint8 for
+    uint8 (the scale over the pair, which a scale per lane would not give)."""
+    from bootstrapper_torch.predict.sharded import ShardedPredictor
+
+    tmp, raw, nc, params = volume
+    monkeypatch.setenv("BS_INT8", "1")
+    roi = A.Roi((0, 0, 0), (8 * VOXEL[0], 16 * VOXEL[1], 24 * VOXEL[2]))  # 2 x 2 x 3 tiles
+    m = _model(nc, params)
+    sp = ShardedPredictor(m, VOXEL, devices=["cpu", "cpu"], compute_dtype=torch.float32)
+    outs = prepare_prediction_outputs(str(tmp / "shared.zarr"), m, roi, VOXEL, sp)
+    with Q.record_scales() as groups:
+        stats = sp.predict(raw, outs, roi)
+    got = outs["3d_affs"].to_ndarray()
+    assert stats["tiles"] == 12 and len(groups) == 6  # a group per step of two tiles
+    points = 0
+    for g in groups:
+        assert g.plain[0] == g.plain[1] > 0 and g.launches == [0, 0]
+        for amaxes, scales in g.scales():
+            assert scales[0] == scales[1] == Q.shared_scale(amaxes)
+            points += 1
+    assert points == 6 * len(groups[0].scales()) and len(groups[0].scales()) > 10
+    assert any(a[0] != a[1] for g in groups for a, _ in g.scales())  # the lanes' own amaxes differ
+    m = _model(nc, params)
+    one = Predictor(m, VOXEL, batch_tiles=2, device="cpu", compute_dtype=torch.float32)
+    ref = prepare_prediction_outputs(str(tmp / "pair.zarr"), m, roi, VOXEL, one)
+    one.predict(raw, ref, roi)
+    np.testing.assert_array_equal(got, ref["3d_affs"].to_ndarray())
+    assert Q.SCALE_RECORD is None  # off again
+
+
 def _tiny_spatial():
     """``tests/test_spatial_predict.py``'s tiny 3D net."""
     nc = _net_config()

@@ -133,3 +133,56 @@ def test_short_last_batch_is_padded(tmp_path):
     ref = prepare_prediction_outputs(str(tmp_path / "o.zarr"), one, raw.roi, vs, pred)
     pred.predict(raw, ref)
     np.testing.assert_array_equal(outs[head].to_ndarray(), ref[head].to_ndarray())
+
+
+def test_2d_int8_sharded_matches_jax(tmp_path, monkeypatch):
+    """A 2D setup under ``BS_INT8=1`` over two logical devices, one section
+    each: each scale over both devices' sections, so the affinities equal
+    the one-device run two sections a batch (uint8 for uint8) and the JAX
+    package's ``ShardedPredictor`` on two virtual devices within the int8
+    bound of ``tests/test_torch_quant.py`` (+-1 on under 1% of voxels)."""
+    monkeypatch.setenv("BS_INT8", "1")
+    nc, head, vs, shape = _net_2d()
+    params = init_params_numpy(nc, 0)
+    raw = A.prepare_ds(str(tmp_path / "t.zarr" / "raw"), shape, (0, 0, 0), vs, np.uint8)
+    raw[raw.roi] = np.random.default_rng(8).integers(0, 255, shape, dtype=np.uint8)
+
+    def port(name, predictor, model):
+        outs = prepare_prediction_outputs(str(tmp_path / f"{name}.zarr"), model, raw.roi, vs, predictor)
+        predictor.predict(raw, outs)
+        return outs[head].to_ndarray()
+
+    model = _model(nc, params)
+    got = port("sharded", ShardedPredictor(model, vs, devices=["cpu"] * 2, compute_dtype=torch.float32), model)
+    one = _model(nc, params)
+    pair = port("pair", Predictor(one, vs, batch_tiles=2, device="cpu", compute_dtype=torch.float32), one)
+    np.testing.assert_array_equal(got, pair)
+
+    jm = JModel(nc)
+    jsp = JShardedPredictor(jm, params, vs, devices=jax.devices()[:2], compute_dtype=jnp.float32)
+    jraw = jax_open_ds(raw.path)
+    jouts = jax_outputs(str(tmp_path / "jax.zarr"), jm, jraw.roi, vs, predictor=jsp)
+    jsp.predict(jraw, jouts)
+    want = jouts[head].to_ndarray()
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert got.shape == want.shape and diff.max() <= 1 and (diff != 0).mean() < 1e-2
+
+
+def test_a_failing_int8_lane_raises_and_frees_the_others(monkeypatch):
+    """Under ``BS_INT8=1`` the lanes wait for each other at every
+    quantization point: a lane that fails releases the others' waits, and
+    its error is raised (no lane is left waiting)."""
+    from bootstrapper_torch.predict._pipeline import Lane, dispatch_lanes
+    from bootstrapper_torch.predict.scan import forward_uint8
+
+    monkeypatch.setenv("BS_INT8", "1")
+    nc, _, _, _ = _net_3d()
+    model = _model(nc, init_params_numpy(nc, 0))
+    lanes = [Lane(model, torch.device("cpu"), torch.float32) for _ in range(2)]
+    x = np.zeros((1, *nc["input_shape"], 1), np.uint8)
+
+    def fails(_):
+        raise RuntimeError("this lane failed")
+
+    with pytest.raises(RuntimeError, match="this lane failed"):
+        dispatch_lanes(lanes, [x, x], [lambda t: forward_uint8(lanes[0].model, t, True), fails], [0, 0])

@@ -373,6 +373,55 @@ def test_loss_and_gradients_match_jax(train_net):
         np.testing.assert_allclose(g, wg, rtol=1e-4, atol=1e-4 * np.abs(wg).max(), err_msg=name)
 
 
+#: the port's bf16-against-fp32 gradient distance of a parameter may stand
+#: this factor past the JAX package's on the same net and batch, plus the
+#: floor (both packages round bf16 convs, each in its own order; on this net
+#: the port's stood between 0.21 and 2.16 times the JAX package's, the
+#: largest at the deepest decoder pass's first bias, 0.088 against 0.041)
+BF16_GRAD_FACTOR = 2.5
+BF16_GRAD_FLOOR = 0.02
+
+
+def test_bf16_gradient_distances_match_jax():
+    """The transposed net's bf16 gradients against fp32, per parameter
+    (relative L2), in both packages from the same numpy parameters and
+    batch: the port's distance within BF16_GRAD_FACTOR of the JAX
+    package's plus BF16_GRAD_FLOOR for every parameter, so that the
+    distance the card's gradient gate allows is the packages' shared one
+    and not the port's own (a narrow net, 4 -> 8 -> 16 channels)."""
+    nc = net_3d()
+    nc.update(num_fmaps=4, fmap_inc_factor=2)
+    params = init_params_numpy(nc, 0)
+    batch = _batch(nc, 1)
+
+    def port(dtype):
+        m = load_params(Model(nc, compute_dtype=dtype), params)
+        L.loss_fn(m, _to_torch(batch)).backward()
+        return {n: p.grad.detach().double() for n, p in m.named_parameters()}
+
+    def jax_grads(dtype):
+        jm = JM.Model(nc, compute_dtype=dtype)
+
+        def jloss(p, b):
+            preds = jm.apply(p, b["input"])
+            t = {k: JL._center_crop_like(b["targets"][k], preds[k]) for k in preds}
+            w = {k: JL._center_crop_like(b["weights"][k], preds[k]) for k in preds}
+            return JM.multi_output_loss(preds, t, w)
+
+        _, g = jax.jit(jax.value_and_grad(jloss))(params, jax.tree_util.tree_map(jnp.asarray, batch))
+        return {k: v.double() for k, v in W.params_from_jax(_numpy(g)).items()}
+
+    def rel(g16, g32):
+        return {n: float((g16[n] - g32[n]).norm() / g32[n].norm()) for n in g32}
+
+    got = rel(port(torch.bfloat16), port(torch.float32))
+    want = rel(jax_grads(jnp.bfloat16), jax_grads(jnp.float32))
+    assert sorted(got) == sorted(want) and any(n.startswith("unet.r_up.") for n in got)
+    assert max(want.values()) > BF16_GRAD_FLOOR  # bf16 moves the JAX gradients too
+    over = {n: (got[n], want[n]) for n in got if got[n] > BF16_GRAD_FACTOR * want[n] + BF16_GRAD_FLOOR}
+    assert not over, over
+
+
 def test_train_steps_match_jax(train_net):
     """Three Adam steps of each package from the same parameters: each
     step's loss within rtol 1e-4, and every ``r_up`` weight moved."""

@@ -128,3 +128,53 @@ def test_lockstep_stream_matches_jax_and_one_device(tmp_path, shape, n_dev, seed
     want = jouts["3d_affs"].to_ndarray()
     diff = np.abs(got.astype(int) - want.astype(int))
     assert got.shape == want.shape and diff.max() <= 1 and (diff != 0).mean() < 1e-3
+
+
+def test_lockstep_int8_shares_scales_and_matches_jax(tmp_path, monkeypatch):
+    """Lockstep streams over two logical devices under ``BS_INT8=1``: every
+    column of a step quantizes each conv-pass input with one scale over
+    both columns (the recorder: bit-equal across lanes and equal to ``max(lane
+    amaxes) / 127``), as the JAX package's step over the sharded column
+    batch takes it; the affinities within the int8 bound of
+    ``tests/test_torch_quant.py`` (+-1 on under 1% of voxels) of the JAX
+    lockstep stream on two virtual devices, on that module's volume and net
+    (10 xy columns of it).
+
+    The bound is the jitted graph's: XLA puts some values a rounding step
+    from where the JAX package's op-by-op graph puts them (that module's
+    docstring), and on a (22, 16, 16) volume from seed 6 its lockstep stream
+    stands 2 apart on 4.3% of voxels, where the port equals the JAX
+    package's op-by-op lockstep stream (``jax.disable_jit``) voxel for
+    voxel; that run takes about a minute on the CPU, too long for here."""
+    from bootstrapper_torch.core.geometry import Roi
+    from bootstrapper_torch.ops import quant as Q
+    from bootstrapper_tpu.core.geometry import Roi as JRoi
+
+    monkeypatch.setenv("BS_INT8", "1")
+    nc = _net()
+    params = init_params_numpy(nc, 0)
+    vs = (40, 4, 4)
+    shape = (22, 60, 40)
+    raw = A.prepare_ds(str(tmp_path / "v.zarr" / "raw"), shape, (0, 0, 0), vs, np.uint8)
+    raw[raw.roi] = np.random.default_rng(22).integers(0, 255, shape, dtype=np.uint8)
+    roi = ((0, 0, 0), (22 * vs[0], 16 * vs[1], 40 * vs[2]))
+    model = load_params(Model(nc, compute_dtype=torch.float32), params)
+    zp = Z.ZStreamPredictor(model, vs, compute_dtype=torch.float32, devices=["cpu", "cpu"])
+    outs = prepare_prediction_outputs(str(tmp_path / "q.zarr"), model, Roi(*roi), vs, zp)
+    with Q.record_scales() as groups:
+        stats = zp.predict(raw, outs, Roi(*roi))
+    got = outs["3d_affs"].to_ndarray()
+    assert stats["columns"] == 10 and len(groups) == stats["tiles"] // 2
+    for g in groups:
+        assert g.plain[0] == g.plain[1] > 0
+        for amaxes, scales in g.scales():
+            assert scales[0] == scales[1] == Q.shared_scale(amaxes)
+
+    jm = JModel(nc)
+    jzp = JZ.ZStreamPredictor(jm, params, vs, compute_dtype=jnp.float32, devices=jax.devices()[:2])
+    jraw = jax_open_ds(raw.path)
+    jouts = jax_outputs(str(tmp_path / "jax.zarr"), jm, JRoi(*roi), vs, predictor=jzp)
+    jzp.predict(jraw, jouts, JRoi(*roi))
+    want = jouts["3d_affs"].to_ndarray()
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert got.shape == want.shape and diff.max() <= 1 and (diff != 0).mean() < 1e-2
