@@ -31,6 +31,7 @@ from ..ops.affinities import affs_mask, balance_weights, grow_boundary, seg_to_a
 from ..ops.lsd import lsd_descriptors_2d_stack, lsd_descriptors_downsampled
 from ..train.sampler import BatchLoader, fold_ids_u32
 from ..train.synth import synthetic_pair
+from ..utils.profiling import span
 from .augment import (
     Generators,
     apply_defect,
@@ -235,9 +236,12 @@ class SyntheticTrainingPipeline:
         return self.transform_batch(next(self.loader))
 
     def transform_batch(self, host_batch: dict) -> dict:
-        """A host batch (``self.loader``'s) through the device transform."""
-        b = upload(host_batch, self.device, ids=("clean", "obf"))
-        return self.transform(self.gen, b["clean"], b["obf"])
+        """A host batch (``self.loader``'s) through the device transform
+        (spans as ``TrainingPipeline.transform_batch``'s)."""
+        with span("bs.train.transform"):
+            with span("bs.train.upload"):
+                b = upload(host_batch, self.device, ids=("clean", "obf"))
+            return self.transform(self.gen, b["clean"], b["obf"])
 
     def stop(self):
         self.loader.stop()

@@ -39,6 +39,7 @@ from ..core.geometry import Coordinate
 from ..ops.affinities import affs_mask, balance_weights, grow_boundary, seg_to_affs
 from ..ops.lsd import lsd_descriptors_downsampled
 from ..train.sampler import ArtifactSampler, BatchLoader, RandomLocationSampler, Sample
+from ..utils.profiling import span
 from .augment import (
     Generators,
     apply_defect,
@@ -185,71 +186,75 @@ def apply_transform(
     """One sample through the transform with the given draws: ``raw``
     (input tile, bytes or float), ``labels`` (input-sized ids, any int
     dtype), ``mask`` (uint8) -> ``(net input (*tile, 1), {name: target
-    (*out, C)}, {name: weights (*out, C)})``, channels last, fp32."""
-    raw = device_normalize_raw(raw)
-    labels = device_renumber(labels)
-    mask = mask.to(torch.float32)
+    (*out, C)}, {name: weights (*out, C)})``, channels last, fp32.  Spans:
+    ``bs.train.augment`` (normalisation through the clamp), then
+    ``bs.train.targets``."""
+    with span("bs.train.augment"):
+        raw = device_normalize_raw(raw)
+        labels = device_renumber(labels)
+        mask = mask.to(torch.float32)
 
-    arrays = apply_simple(
-        {"raw": raw, "labels": labels, "mask": mask}, **draws["simple"],
-        mirror_axes=MIRROR_AXES, transpose_axes=TRANSPOSE_AXES,
-    )
-    if "deform" in draws:
-        flow = apply_flow(tuple(raw.shape), JITTER_SIGMA, **draws["deform"])
-        arrays = apply_elastic(arrays, INTERP, flow)
-    if "shift" in draws:
-        arrays = apply_shift(arrays, **draws["shift"])
-    raw, labels, mask = arrays["raw"], arrays["labels"], arrays["mask"]
+        arrays = apply_simple(
+            {"raw": raw, "labels": labels, "mask": mask}, **draws["simple"],
+            mirror_axes=MIRROR_AXES, transpose_axes=TRANSPOSE_AXES,
+        )
+        if "deform" in draws:
+            flow = apply_flow(tuple(raw.shape), JITTER_SIGMA, **draws["deform"])
+            arrays = apply_elastic(arrays, INTERP, flow)
+        if "shift" in draws:
+            arrays = apply_shift(arrays, **draws["shift"])
+        raw, labels, mask = arrays["raw"], arrays["labels"], arrays["mask"]
 
-    if "noise" in draws:
-        raw = apply_noise(raw, **draws["noise"])
-    if "intensity" in draws:
-        raw = apply_intensity(raw, **draws["intensity"], slab_axis=0)
-    if "gamma" in draws:
-        raw = apply_gamma(raw, **draws["gamma"], slab_axis=0)
-    if "impulse" in draws:
-        raw = apply_impulse(raw, **draws["impulse"])
-    if "smooth" in draws:
-        raw = apply_smooth(raw, **draws["smooth"], slab_axis=0)
-    raw = apply_defect(
-        raw, **draws["defect"],
-        prob_missing=0.05 if spec.input_tile[0] > 1 else 0.0,
-        prob_low_contrast=0.1,
-        prob_artifact=prob_artifact if artifact is not None else 0.0,
-        artifact=artifact, artifact_mask=artifact_mask,
-    )
-    raw = torch.clamp(raw, 0.0, 1.0)
+        if "noise" in draws:
+            raw = apply_noise(raw, **draws["noise"])
+        if "intensity" in draws:
+            raw = apply_intensity(raw, **draws["intensity"], slab_axis=0)
+        if "gamma" in draws:
+            raw = apply_gamma(raw, **draws["gamma"], slab_axis=0)
+        if "impulse" in draws:
+            raw = apply_impulse(raw, **draws["impulse"])
+        if "smooth" in draws:
+            raw = apply_smooth(raw, **draws["smooth"], slab_axis=0)
+        raw = apply_defect(
+            raw, **draws["defect"],
+            prob_missing=0.05 if spec.input_tile[0] > 1 else 0.0,
+            prob_low_contrast=0.1,
+            prob_artifact=prob_artifact if artifact is not None else 0.0,
+            artifact=artifact, artifact_mask=artifact_mask,
+        )
+        raw = torch.clamp(raw, 0.0, 1.0)
 
-    labels_out = _crop_out(labels, spec.output_tile)
-    mask_out = _crop_out(mask, spec.output_tile)
-    targets, weights = {}, {}
-    for name in spec.net_config["outputs"]:
-        out = spec.output_spec(name)
-        if "neighborhood" in out:  # affinities head
-            lab = labels_out
-            if out.get("grow_boundary", 0):
-                lab = grow_boundary(lab, steps=out["grow_boundary"], only_xy=True, mask=mask_out)
-            t = seg_to_affs(lab, out["neighborhood"])
-            m = affs_mask(mask_out, out["neighborhood"])
-            w = balance_weights(t, m, slab_axis=0)
-        elif spec.is_2d:  # LSD head: the centre section's 2D LSDs, z put back
-            t = lsd_descriptors_downsampled(
-                labels_out[0], sigma=spec.net_config["outputs"][name]["sigma"],
-                voxel_size=spec.voxel_size[1:], downsample=out.get("downsample", 1),
-                max_labels=MAX_LABELS,
-            )[:, None]
-            w = mask_out[None].expand(t.shape)
-        else:  # LSD head
-            t = lsd_descriptors_downsampled(
-                labels_out, sigma=out["sigma"], voxel_size=spec.voxel_size,
-                downsample=out.get("downsample", 1), max_labels=MAX_LABELS,
-            )
-            w = mask_out[None].expand(t.shape)
-        t, w = torch.movedim(t, 0, -1), torch.movedim(w, 0, -1)
-        if spec.is_2d:  # (1, h, w, C) -> (h, w, C)
-            t, w = t[0], w[0]
-        targets[name] = t.to(torch.float32)
-        weights[name] = w.to(torch.float32)
+    with span("bs.train.targets"):
+        labels_out = _crop_out(labels, spec.output_tile)
+        mask_out = _crop_out(mask, spec.output_tile)
+        targets, weights = {}, {}
+        for name in spec.net_config["outputs"]:
+            out = spec.output_spec(name)
+            if "neighborhood" in out:  # affinities head
+                lab = labels_out
+                if out.get("grow_boundary", 0):
+                    lab = grow_boundary(lab, steps=out["grow_boundary"], only_xy=True, mask=mask_out)
+                t = seg_to_affs(lab, out["neighborhood"])
+                m = affs_mask(mask_out, out["neighborhood"])
+                w = balance_weights(t, m, slab_axis=0)
+            elif spec.is_2d:  # LSD head: the centre section's 2D LSDs, z put back
+                t = lsd_descriptors_downsampled(
+                    labels_out[0], sigma=spec.net_config["outputs"][name]["sigma"],
+                    voxel_size=spec.voxel_size[1:], downsample=out.get("downsample", 1),
+                    max_labels=MAX_LABELS,
+                )[:, None]
+                w = mask_out[None].expand(t.shape)
+            else:  # LSD head
+                t = lsd_descriptors_downsampled(
+                    labels_out, sigma=out["sigma"], voxel_size=spec.voxel_size,
+                    downsample=out.get("downsample", 1), max_labels=MAX_LABELS,
+                )
+                w = mask_out[None].expand(t.shape)
+            t, w = torch.movedim(t, 0, -1), torch.movedim(w, 0, -1)
+            if spec.is_2d:  # (1, h, w, C) -> (h, w, C)
+                t, w = t[0], w[0]
+            targets[name] = t.to(torch.float32)
+            weights[name] = w.to(torch.float32)
     return (raw * 2.0 - 1.0)[..., None], targets, weights
 
 
@@ -369,11 +374,14 @@ class TrainingPipeline:
         return self.transform_batch(next(self.loader))
 
     def transform_batch(self, host_batch: dict) -> dict:
-        """A host batch (``self.loader``'s) through the device transform."""
-        b = upload(host_batch, self.device)
-        return self.transform(
-            self.gen, b["raw"], b["labels"], b["mask"], b.get("artifact"), b.get("artifact_mask"),
-        )
+        """A host batch (``self.loader``'s) through the device transform:
+        the span ``bs.train.transform``, ``bs.train.upload`` in it."""
+        with span("bs.train.transform"):
+            with span("bs.train.upload"):
+                b = upload(host_batch, self.device)
+            return self.transform(
+                self.gen, b["raw"], b["labels"], b["mask"], b.get("artifact"), b.get("artifact_mask"),
+            )
 
     def stop(self):
         self.loader.stop()

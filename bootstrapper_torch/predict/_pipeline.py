@@ -24,6 +24,7 @@ import torch
 from ..core.arrays import Array
 from ..core.geometry import Coordinate, Roi
 from ..models.model import head_dims
+from ..utils.profiling import span
 
 
 def normalize_raw(raw: np.ndarray) -> np.ndarray:
@@ -78,7 +79,10 @@ def run_pipelined(
     ``read(item)`` runs on a reader thread (exceptions re-raise here).
     ``dispatch(host_array)`` queues the device work and returns a handle;
     ``drain(item, handle)`` runs one step behind it, and once more for the
-    final item."""
+    final item.  Spans (``utils/profiling.py:span``): ``bs.predict.read``
+    on the reader thread; ``bs.predict.read_wait``, ``bs.predict.dispatch``
+    and ``bs.predict.drain`` on the calling thread, which a profiler
+    started there records."""
     q: queue.Queue = queue.Queue(maxsize=2)
     stop = threading.Event()
 
@@ -94,7 +98,9 @@ def run_pipelined(
     def reader():
         try:
             for it in items:
-                if not put((it, read(it))):
+                with span("bs.predict.read"):
+                    host_arr = read(it)
+                if not put((it, host_arr)):
                     return
             put(None)
         except Exception as e:  # re-raised by the consumer loop
@@ -105,18 +111,22 @@ def run_pipelined(
     pending = None
     try:
         while True:
-            got = q.get()
+            with span("bs.predict.read_wait"):
+                got = q.get()
             if got is None:
                 break
             if isinstance(got, Exception):
                 raise got
             item, host_arr = got
-            handle = dispatch(host_arr)
+            with span("bs.predict.dispatch"):
+                handle = dispatch(host_arr)
             if pending is not None:
-                drain(*pending)
+                with span("bs.predict.drain"):
+                    drain(*pending)
             pending = (item, handle)
         if pending is not None:
-            drain(*pending)
+            with span("bs.predict.drain"):
+                drain(*pending)
     finally:
         stop.set()
         thread.join()
@@ -252,10 +262,12 @@ class Lane:
 
 def fetch(handle) -> Dict[str, np.ndarray]:
     """Wait for a ``Lane.download`` (or a ``DeviceIO.run``) and return its
-    outputs as numpy arrays."""
+    outputs as numpy arrays; the wait is the span
+    ``bs.predict.device_wait``."""
     event, outs = handle
-    if event is not None:
-        event.synchronize()
+    with span("bs.predict.device_wait"):
+        if event is not None:
+            event.synchronize()
     return {k: v.numpy() for k, v in outs.items()}
 
 
@@ -340,22 +352,23 @@ class TileWriter:
     ) -> None:
         """Write every tile of one batch of host outputs
         (``outs[name]``: (B, D, H, W, C)); ``clips[j]``, where given,
-        clips tile j's writes too."""
-        for j, wroi in enumerate(batch_tiles):
-            for name, arr in self.outputs.items():
-                pred = np.moveaxis(np.asarray(outs[name][j]), -1, 0)
-                dest = wroi.intersect(arr.roi)
-                if self.clip_roi is not None:
-                    dest = dest.intersect(self.clip_roi)
-                if clips is not None:
-                    dest = dest.intersect(clips[j])
-                if dest.empty:
-                    continue
-                sl = tuple(
-                    slice(int(a), int(a + s))
-                    for a, s in zip(
-                        (dest.begin - wroi.begin) / self.voxel_size,
-                        Coordinate(dest.shape) / self.voxel_size,
+        clips tile j's writes too.  The span ``bs.predict.write``."""
+        with span("bs.predict.write"):
+            for j, wroi in enumerate(batch_tiles):
+                for name, arr in self.outputs.items():
+                    pred = np.moveaxis(np.asarray(outs[name][j]), -1, 0)
+                    dest = wroi.intersect(arr.roi)
+                    if self.clip_roi is not None:
+                        dest = dest.intersect(self.clip_roi)
+                    if clips is not None:
+                        dest = dest.intersect(clips[j])
+                    if dest.empty:
+                        continue
+                    sl = tuple(
+                        slice(int(a), int(a + s))
+                        for a, s in zip(
+                            (dest.begin - wroi.begin) / self.voxel_size,
+                            Coordinate(dest.shape) / self.voxel_size,
+                        )
                     )
-                )
-                arr[dest] = pred[(slice(None),) + sl][: self.dims[name]]
+                    arr[dest] = pred[(slice(None),) + sl][: self.dims[name]]

@@ -245,7 +245,9 @@ class Predictor:
     def predict(self, raw, outputs: Dict[str, Array], roi: Optional[Roi] = None) -> dict:
         """Run inference over ``roi`` (default: the outputs' ROI), writing
         into ``outputs``.  ``raw`` is one Array or a list whose channels are
-        concatenated.  Returns tile count, seconds and output voxels/s."""
+        concatenated.  Returns tile count, seconds and ``voxels_per_sec``: the
+        ROI's output voxels over the seconds, each voxel once however often
+        it is computed."""
         inputs = raw if isinstance(raw, (list, tuple)) else [raw]
         total = roi if roi is not None else next(iter(outputs.values())).roi
         tiles = tile_rois(total, self.output_size)
@@ -266,10 +268,7 @@ class Predictor:
             drain=lambda batch, handle: writer.drain_batch(batch, fetch(handle)),
         )
         dt = time.perf_counter() - t0
-        out_voxels = sum(
-            int(np.prod(np.asarray(t.shape) // np.asarray(self.voxel_size)))
-            for t in tiles
-        )
+        out_voxels = int(np.prod(Coordinate(total.shape) / self.voxel_size))
         return {"tiles": len(tiles), "seconds": dt, "voxels_per_sec": out_voxels / dt}
 
 

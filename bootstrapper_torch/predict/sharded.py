@@ -70,8 +70,8 @@ class ShardedPredictor:
 
     def predict(self, raw, outputs: Dict[str, Array], roi: Optional[Roi] = None) -> dict:
         """Run inference over ``roi`` (default: the outputs' ROI), writing
-        into ``outputs``.  Returns tiles, devices, seconds, output voxels/s
-        and the conv kernel's launches per device."""
+        into ``outputs``.  Returns tiles, devices, seconds, the ROI's output
+        voxels/s and the conv kernel's launches per device."""
         inputs = raw if isinstance(raw, (list, tuple)) else [raw]
         total = roi if roi is not None else next(iter(outputs.values())).roi
         tiles = tile_rois(total, self.output_size)
@@ -97,7 +97,7 @@ class ShardedPredictor:
             [tiles[i : i + B] for i in range(0, len(tiles), B)], read=read_batch, dispatch=dispatch, drain=drain
         )
         dt = time.perf_counter() - t0
-        out_voxels = len(tiles) * int(np.prod(self.output_tile))
+        out_voxels = int(np.prod(Coordinate(total.shape) / self.voxel_size))
         return {
             "tiles": len(tiles), "devices": B, "seconds": dt, "voxels_per_sec": out_voxels / dt,
             "launches_by_device": launches,

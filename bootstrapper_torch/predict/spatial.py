@@ -283,7 +283,7 @@ class SpatialShardedPredictor:
         """Run inference over ``roi`` (default: the outputs' ROI), writing
         into ``outputs``; one tile at a time, each split over the devices.
         Returns tiles, devices, the shard axis, the halo rows, the halo bytes
-        copied, seconds, output voxels/s and the conv kernel's launches per
+        copied, seconds, the ROI's output voxels/s and the conv kernel's launches per
         device."""
         inputs = raw if isinstance(raw, (list, tuple)) else [raw]
         total = roi if roi is not None else next(iter(outputs.values())).roi
@@ -298,7 +298,7 @@ class SpatialShardedPredictor:
             drain=lambda wroi, handles: writer.drain_batch([wroi], self.gather(handles)),
         )
         dt = time.perf_counter() - t0
-        out_voxels = len(tiles) * int(np.prod(self.out_tile))
+        out_voxels = int(np.prod(Coordinate(total.shape) / self.voxel_size))
         return {
             "tiles": len(tiles),
             "devices": self.n_dev,

@@ -40,6 +40,7 @@ from ..core.geometry import Coordinate, Roi
 from ..models.model import Model
 from ..models.unet import compute_output_shape
 from ..models.zstream import stream_eligible
+from ..utils.profiling import span
 from ._pipeline import Lane, TileWriter, dispatch_lanes, fetch, read_inputs, run_pipelined
 from .scan import DEFAULT_DEVICE_BYTES, device_memory_bytes, normalize_on_device, quantize, tile_rois
 
@@ -276,8 +277,8 @@ class ZStreamPredictor:
         """Stream ``roi`` (default: the outputs' ROI) column by column,
         writing into ``outputs``.  ``raw`` is one Array or a list whose
         channels are concatenated.  Returns tiles (columns x steps),
-        columns, z segments, steps per column, devices, seconds, output
-        voxels/s, the plan and the conv kernel's launches per device.
+        columns, z segments, steps per column, devices, seconds, the ROI's
+        output voxels/s, the plan and the conv kernel's launches per device.
 
         Over ``B`` devices, B virtual columns stream in lockstep, each on
         its own device with its caches there; a short last group is padded
@@ -355,7 +356,8 @@ class ZStreamPredictor:
                 return outs
 
             fns = [lambda x, k=k: run(x, k) for k in range(B)]
-            return dispatch_lanes(self.lanes, arrs, fns, launches)  # queued; waited for in drain
+            with span("bs.zstream.warm" if is_warm else "bs.zstream.steady"):
+                return dispatch_lanes(self.lanes, arrs, fns, launches)  # queued; waited for in drain
 
         def drain(item, handles):
             _, wrois, clips = item
@@ -366,7 +368,7 @@ class ZStreamPredictor:
         run_pipelined(items, read=read_item, dispatch=dispatch, drain=drain)
         states = None  # free the device caches
         dt = time.perf_counter() - t0
-        out_voxels = len(yx_tiles) * n_z * int(np.prod(self.output_tile[1:]))
+        out_voxels = int(np.prod(Coordinate(total.shape) / self.voxel_size))
         return {
             "tiles": len(vcols) * len(z_offsets),
             "columns": len(yx_tiles),

@@ -29,6 +29,7 @@ import torch
 
 from ..models.model import Model, multi_output_loss
 from ..models.unet import compute_output_shape
+from ..utils.profiling import span
 from ..models.weights import (
     init_params_numpy,
     latest_checkpoint,
@@ -102,15 +103,23 @@ def loss_fn(model: Model, batch: dict, counts: Optional[dict] = None):
 def make_train_step() -> Callable:
     """The step: ``(state, batch) -> (state, {"loss": loss})``: forward,
     backward, one Adam update.  The loss stays on the device (reading it
-    waits for the card)."""
+    waits for the card).  Spans: ``bs.train.step``, and in it
+    ``bs.train.forward``, ``bs.train.backward`` and ``bs.train.optimizer``
+    (Adam's update).  The gradients are set to None before the forward,
+    which queues no device work, and stay on the parameters after the
+    step."""
 
     def step(state: TrainState, batch: dict):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state.model, batch)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": loss.detach()}
+        with span("bs.train.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("bs.train.forward"):
+                loss = loss_fn(state.model, batch)
+            with span("bs.train.backward"):
+                loss.backward()
+            with span("bs.train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            return state, {"loss": loss.detach()}
 
     return step
 

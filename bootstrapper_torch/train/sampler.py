@@ -25,6 +25,7 @@ import numpy as np
 
 from ..core.arrays import Array, open_ds
 from ..core.geometry import Coordinate, Roi
+from ..utils.profiling import span
 
 
 def normalize_raw(raw: np.ndarray) -> np.ndarray:
@@ -229,7 +230,8 @@ class BatchLoader:
     """Threaded prefetcher: stacks ``batch_size`` sampler draws into
     batched numpy arrays and keeps ``prefetch`` batches ready
     (gp.PreCache capability, host threads instead of subprocesses —
-    file reads and numpy copies release the GIL)."""
+    file reads and numpy copies release the GIL).  Spans: ``bs.train.draw``
+    on the workers, ``bs.train.loader_wait`` on the caller of ``next``."""
 
     def __init__(self, sample_fn: Callable[[], dict], batch_size: int,
                  prefetch: int = 4, num_threads: int = 2):
@@ -245,9 +247,10 @@ class BatchLoader:
             t.start()
 
     def _make_batch(self):
-        draws = [self.sample_fn() for _ in range(self.batch_size)]
-        keys = [k for k in draws[0] if k != "roi"]
-        return {k: np.stack([d[k] for d in draws]) for k in keys}
+        with span("bs.train.draw"):
+            draws = [self.sample_fn() for _ in range(self.batch_size)]
+            keys = [k for k in draws[0] if k != "roi"]
+            return {k: np.stack([d[k] for d in draws]) for k in keys}
 
     def _work(self):
         while not self._stop.is_set():
@@ -262,7 +265,8 @@ class BatchLoader:
         return self
 
     def __next__(self):
-        item = self.q.get()
+        with span("bs.train.loader_wait"):
+            item = self.q.get()
         if isinstance(item, Exception):
             raise item
         return item

@@ -54,6 +54,7 @@ from ..predict.sharded import ShardedPredictor
 from ..predict.spatial import SpatialShardedPredictor, spatial_shape_increase
 from ..predict.zstream import ZStreamPredictor, plan_stream, plan_z_groups
 from ..utils import tomlio
+from ..utils.profiling import torch_trace
 
 logger = logging.getLogger(__name__)
 
@@ -352,7 +353,8 @@ def run_prediction(
                 vcfg["output_container"], model, out_roi, raw.voxel_size, predictor,
                 dataset_prefix=link["output_prefix"] + "/",
             )
-            stats = predictor.predict(prev_arrays, outputs, out_roi)
+            with torch_trace(os.path.join("predict", volume_name, link["output_prefix"])):
+                stats = predictor.predict(prev_arrays, outputs, out_roi)
             logger.info(
                 "%s / %s: %d tiles, %.2f Mvox/s",
                 volume_name, setup_name, stats["tiles"], stats["voxels_per_sec"] / 1e6,

@@ -63,9 +63,14 @@ from ..train.loop import (
 )
 from ..train.sampler import Sample
 from ..utils import tomlio
+from ..utils.profiling import torch_trace
 from ..utils.stall import StallWatchdog
 
 logger = logging.getLogger(__name__)
+
+#: the iterations of a run that ``BS_PROFILE`` traces (``torch_trace``),
+#: counted from its first: 11-30, after the first loss read
+TRACE_ITERATIONS = range(10, 30)
 
 
 def _rss_gb() -> float:
@@ -259,12 +264,17 @@ def _train(cfg: dict, dev: torch.device, compute_dtype, mesh: MeshRank = None, b
 
     t0 = time.perf_counter()
     losses = []
+    trace = contextlib.ExitStack()  # BS_PROFILE's trace of TRACE_ITERATIONS
     try:
         with open(log_path, "a") if rank0 else contextlib.nullcontext() as logf:
             it = start_iter - 1
             for it in range(start_iter, max_iterations):
                 if watchdog is not None:
                     watchdog.beat(it)
+                if rank0 and it - start_iter == TRACE_ITERATIONS.start:
+                    trace.enter_context(torch_trace("train"))
+                elif it - start_iter == TRACE_ITERATIONS.stop:
+                    trace.close()
                 batch = pipeline.next_batch() if pipeline is not None else None
                 if mesh is not None:
                     batch = broadcast_batch(batch, mesh)
@@ -300,6 +310,7 @@ def _train(cfg: dict, dev: torch.device, compute_dtype, mesh: MeshRank = None, b
                         rss_hit = True
                         break
     finally:
+        trace.close()
         if watchdog is not None:
             watchdog.stop()
         if pipeline is not None:

@@ -4,8 +4,8 @@ the same inputs (written by the JAX package as zstd Zarr, or as a TIFF
 stack), whose outputs must be bit-equal; ``convert_ckpt`` on a synthetic
 reference state dict (built as ``tests/test_convert_torch.py`` builds it),
 whose npz files must hold the same arrays and load into equal parameters;
-``download_ckpts``; and ``utils/profiling.py`` as
-``tests/test_profiling.py`` asks of the JAX package's."""
+``download_ckpts``; and ``utils/profiling.py:torch_trace`` as
+``tests/test_profiling.py`` asks of the JAX package's trace."""
 
 import json
 import os
@@ -23,7 +23,7 @@ from bootstrapper_torch.models import Model, load_checkpoint, load_params
 from bootstrapper_torch.models.weights import params_from_jax
 from bootstrapper_torch.models.zoo import write_net_config
 from bootstrapper_torch.utils import tomlio
-from bootstrapper_torch.utils.profiling import stage_timer, torch_trace
+from bootstrapper_torch.utils.profiling import torch_trace
 from bootstrapper_tpu.cli import cli as jcli
 from bootstrapper_tpu.core import arrays as J
 from bootstrapper_tpu.models.convert_torch import load_torch_state_dict, torch_to_params
@@ -183,17 +183,6 @@ def test_download_ckpts_matches_jax(tmp_path):
         files[pkg] = {n: open(setup / n, "rb").read() for n in os.listdir(setup)}
     assert files["port"] == files["jax"]
     assert any(n.startswith("model_checkpoint") for n in files["port"])
-
-
-def test_stage_timer_logs(tmp_path):
-    log = str(tmp_path / "stages.jsonl")
-    with stage_timer("fragments", log):
-        pass
-    with stage_timer("agglomerate", log):
-        pass
-    entries = [json.loads(line) for line in open(log)]
-    assert [e["stage"] for e in entries] == ["fragments", "agglomerate"]
-    assert all(e["seconds"] >= 0 for e in entries)
 
 
 def test_torch_trace_noop_without_env(tmp_path, monkeypatch):
