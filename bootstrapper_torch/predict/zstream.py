@@ -68,16 +68,24 @@ def plan_stream(
     min_columns: int = 1,
     device=None,
 ) -> tuple:
-    """Pick ``(shape_increase, step_z, warm_step_z)`` for streaming.
+    """Pick ``(shape_increase, step_z, warm_step_z)`` for streaming: the
+    plan that computes the fewest input voxels over the volume.
 
-    The search of the JAX package: the widest xy whose steady graph fits
-    ``max_eff_voxels`` effective input voxels ``(s + 8) * xy_in**2`` at
-    ``min_step_z`` (and keeps ``min_columns`` xy columns), then the
-    largest step up to ``max_step_z`` at that width; shallow volumes cap
-    the step so a stream takes at least two steps.  The warm step is the
-    net's base output z, and the steady step a multiple of it, so that the
-    write grid stays on output chunks of the warm step's z extent.  The
-    default budget is ``device``'s (``default_budget``)."""
+    The candidate xy increases are those on the pooling grid whose output
+    tile is no wider than the volume, which keep ``min_columns`` xy
+    columns, and whose steady graph fits ``max_eff_voxels`` effective input
+    voxels ``(s + 8) * xy_in**2`` at ``min_step_z`` (the JAX package takes
+    the widest of them).  At each, the z step is the one from
+    ``min_step_z`` up to ``max_step_z``, the budget's largest and half the
+    volume's z (so that a stream takes at least two steps) whose steps
+    cover the fewest slices; shallow volumes take that cap.  The warm step
+    is the net's base output z, and the steady step a multiple of it, so
+    that the write grid stays on output chunks of the warm step's z
+    extent.  A plan costs columns x input xy area x z slices covered; ties
+    go to fewer steps, then the wider tile.  A tile that covers the volume
+    evenly keeps the JAX package's plan; a wide tile that overhangs the
+    volume by a few voxels gives way to a narrower one with the same
+    columns.  The default budget is ``device``'s (``default_budget``)."""
     if max_eff_voxels is None:
         max_eff_voxels = default_budget(device)
     base_in = list(net_config["input_shape"])
@@ -96,24 +104,40 @@ def plan_stream(
         t = base_out[1] + inc_xy
         return -(-vol[1] // t) * (-(-vol[2] // t))
 
-    inc_xy = 0
+    def warm(s):
+        return max(1, min(base_out[0], s))
+
+    def z_covered(s):
+        return warm(s) + max(0, -(-(vol[0] - warm(s)) // s)) * s
+
+    incs = [0]
     while True:
-        cand = inc_xy + step[1]
+        cand = incs[-1] + step[1]
         if (
             base_out[1] + cand > min(vol[1], vol[2])
             or columns(cand) < min_columns
             or eff_vox(min_step_z, cand) > max_eff_voxels
         ):
             break
-        inc_xy = cand
-    s = min_step_z
-    while s < max_step_z and eff_vox(s + 1, inc_xy) <= max_eff_voxels:
-        s += 1
-    s = max(1, min(s, vol[0] // 2 if vol[0] > 1 else 1))
-    warm_s = max(1, min(base_out[0], s))
-    if s > warm_s:
-        s -= s % warm_s
-    return [0, inc_xy, inc_xy], s, warm_s
+        incs.append(cand)
+    z_cap = vol[0] // 2 if vol[0] > 1 else 1
+    best = None
+    for inc_xy in incs:
+        top = min_step_z
+        while top < max_step_z and eff_vox(top + 1, inc_xy) <= max_eff_voxels:
+            top += 1
+        hi = max(1, min(top, z_cap))
+        steps = [s for s in range(min_step_z, hi + 1) if s % warm(s) == 0]
+        if not steps:  # shallow: the cap, on the warm step's grid
+            steps = [hi - hi % warm(hi)]
+        for s in steps:
+            z = z_covered(s)
+            n_steps = 1 + (z - warm(s)) // s
+            key = (columns(inc_xy) * (base_in[1] + inc_xy) * (base_in[2] + inc_xy) * z, n_steps, -inc_xy)
+            if best is None or key < best[0]:
+                best = (key, inc_xy, s)
+    _, inc_xy, s = best
+    return [0, inc_xy, inc_xy], s, warm(s)
 
 
 #: a warm step's device time over its share of a steady step's by slices,

@@ -38,7 +38,7 @@ Phases, each printing one JSON line:
     most 1 apart on under 1% of voxels) and at the zoo's tile (under 1%
     differ, counted near the tiled xy seams and away from them).  Then one
     steady step is profiled at the plan's tile and at ``ZSTREAM_SWEEP``'s
-    and the widest the default budget plans: device time by group, peak
+    and the widest the default budget admits: device time by group, peak
     memory per effective voxel (what ``predict/zstream.py``'s budget rests
     on).  Then what the segmentation pays around the seed kernel:
     ``device_seed_maxima`` (upload, kernel, download) timed at two stack
@@ -388,7 +388,7 @@ SYNTH_BIAS_SWEEP = [[-0.55, -0.8]]
 ZSTREAM_SHAPE = (130, 640, 640)
 # steady-step tiles (s new slices, xy, xy) measured for memory and
 # throughput besides the plan's; ``main`` adds the widest the default
-# budget plans (at the least step, 24 slices) on this card
+# budget admits (at the least step, 24 slices) on this card
 ZSTREAM_SWEEP = [(24, 732, 732), (64, 732, 732)]
 # streamed against tiled uint8 affinities: the largest difference and the
 # share of voxels that may differ
@@ -1175,6 +1175,19 @@ def stream_step_flops(net_config: dict, step_tile) -> dict:
     out_voxels = hi["output_voxels"] - lo["output_voxels"]
     flops = {k: hi[k] - lo[k] for k in ("kernel", "library")}
     return {**flops, "output_voxels": out_voxels, "per_output_voxel": sum(flops.values()) / out_voxels}
+
+
+def widest_stream_step(net_config: dict, budget: int, s: int = 24) -> list:
+    """The widest steady step ``(s, xy, xy)`` on the pooling grid whose
+    effective input voxels ``(s + 8) * xy**2`` fit ``budget``: the tile
+    that ``predict/zstream.py``'s memory model is held to at its limit
+    (``plan_stream`` picks narrower tiles where they cover a volume with
+    the same columns)."""
+    grid = int(np.prod([f[1] for f in net_config["downsample_factors"]]))
+    xy = net_config["input_shape"][1]
+    while (s + 8) * (xy + grid) ** 2 <= budget:
+        xy += grid
+    return [s, xy, xy]
 
 
 def stream_step_profile(model, step_tile, s_warm: int, seed: int) -> dict:
@@ -5605,7 +5618,7 @@ def main(argv=None) -> int:
     from bootstrapper_torch.ops import _build, launch_counts
     from bootstrapper_torch.ops import conv3d as conv3d_ops
     from bootstrapper_torch.ops import quant as quant_ops
-    from bootstrapper_torch.predict.zstream import plan_stream
+    from bootstrapper_torch.predict.zstream import default_budget
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5717,8 +5730,7 @@ def main(argv=None) -> int:
     # the steady step at the plan's tile, and the memory and throughput
     # sweep behind the planner's default budget
     model = load_params(Model(net_config), params)
-    inc, s_wide, _ = plan_stream(net_config, (10_000, 20_000, 20_000), device="cuda")
-    widest = [s_wide, net_config["input_shape"][1] + inc[1], net_config["input_shape"][2] + inc[2]]
+    widest = widest_stream_step(net_config, default_budget("cuda"))
     sweep = [list(t) for t in ZSTREAM_SWEEP] + [widest]
     for tile in [step_tile] + [t for t in sweep if t != step_tile]:
         emit(

@@ -9,7 +9,9 @@
 - The stream equals the JAX package's ``unet_stream_step`` step by step,
   state extents included (fp32, the tolerance of the JAX parity in
   ``tests/test_torch_unet.py``).
-- ``plan_stream`` returns what the JAX function returns for a budget.
+- ``plan_stream`` computes no more than the JAX function's plan (the
+  widest tile that fits), and equals it where that tile covers the volume
+  evenly; its tile never overhangs the volume.
 
 Both packages get the same numpy-made params (``init_params_numpy``).
 Nets: 2 -> 4 -> 8 channels (every conv on the library route) and
@@ -166,6 +168,38 @@ def test_stream_eligibility_matches_jax():
         unet_stream_step(Model(pooled).unet, torch.zeros(1, 24, 48, 48, 1), None)
 
 
+def _plan_cost(nc, vol, plan):
+    """Input voxels a plan computes: xy columns x input xy area x the z
+    slices its steps cover (``plan_stream``'s own measure)."""
+    inc, s, warm_s = plan
+    t = nc["output_shape"][1] + inc[1]
+    columns = -(-vol[1] // t) * (-(-vol[2] // t))
+    z = warm_s + max(0, -(-(vol[0] - warm_s) // s)) * s
+    return columns * (nc["input_shape"][1] + inc[1]) * (nc["input_shape"][2] + inc[2]) * z
+
+
+def _check_plan(nc, vol, budget, plan):
+    """A plan's invariants: square xy, within the budget, the steady step
+    on the warm step's grid, the output tile no wider than the volume."""
+    inc, s, warm_s = plan
+    assert inc[0] == 0 and inc[1] == inc[2] and inc[1] % 8 == 0
+    assert (s + 8) * (nc["input_shape"][1] + inc[1]) * (nc["input_shape"][2] + inc[2]) <= budget
+    assert s % warm_s == 0
+    assert nc["output_shape"][1] + inc[1] <= min(vol[1], vol[2])
+
+
+#: cases whose JAX tile already covers the volume evenly (no narrower tile
+#: on the pooling grid keeps its columns) at a step that covers the fewest
+#: slices: there the port's plan is the JAX package's
+SAME_AS_JAX = {
+    ((8, 640, 640), 18_900_000, 1),
+    ((130, 640, 640), 18_900_000, 1),
+    ((130, 640, 640), 160_000_000, 1),
+    ((1000, 2000, 2000), 18_900_000, 1),
+    ((40, 200, 200), 18_900_000, 1),
+}
+
+
 @pytest.mark.parametrize(
     "vol,budget,min_columns",
     [
@@ -182,12 +216,90 @@ def test_stream_eligibility_matches_jax():
     ],
 )
 def test_plan_stream_matches_jax(vol, budget, min_columns):
+    """The port's plan computes no more than the JAX package's (the
+    widest tile that fits), and is the JAX plan where that tile already
+    covers the volume evenly."""
     nc = get_net_config("3d_affs")
     got = plan_stream(nc, vol, max_eff_voxels=budget, min_columns=min_columns)
     want = jax_plan_stream(nc, vol, max_eff_voxels=budget, min_columns=min_columns)
-    assert tuple(got) == tuple(want)
+    _check_plan(nc, vol, budget, got)
     inc, s, warm_s = got
-    assert s % warm_s == 0
+    t = nc["output_shape"][1] + inc[1]
+    assert -(-vol[1] // t) * (-(-vol[2] // t)) >= min_columns
+    assert _plan_cost(nc, vol, got) <= _plan_cost(nc, vol, want)
+    if (vol, budget, min_columns) in SAME_AS_JAX:
+        assert tuple(got) == tuple(want)
+
+
+def test_plan_stream_at_the_cremi_volume():
+    """CREMI's (125,1250,1250) on one H100: two columns an axis of the
+    narrowest tile on the grid that covers the volume with them (632, not
+    the widest that fits, 1248, which overhangs by 2 and so needs two an
+    axis as well), and the benchmark's ``computed_voxels`` reads at most
+    1.08 voxels computed per voxel written (4.21 at the widest tile)."""
+    import os
+    import sys
+    from types import SimpleNamespace
+
+    from bootstrapper_torch.core.geometry import Roi
+    from bootstrapper_torch.predict.scan import tile_rois
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        from bmk.predict import computed_voxels
+    finally:
+        sys.path.remove(bench)
+
+    nc = get_net_config("3d_affs")
+    vol = (125, 1250, 1250)
+    inc, s, warm_s = plan_stream(nc, vol, device="cpu")
+    assert (inc, s, warm_s) == ([0, 528, 528], 32, 4)
+    tile = (s, *(o + i for o, i in zip(nc["output_shape"][1:], inc[1:])))
+    columns = len(tile_rois(Roi((0, 0), vol[1:]), tile[1:]))
+    stats = {
+        "columns": columns,
+        "z_segments": 1,
+        "warm_step_z": warm_s,
+        "steps_per_column": 1 + -(-(vol[0] - warm_s) // s),
+        "step_z": s,
+    }
+    ratio = computed_voxels(SimpleNamespace(output_tile=tile), stats) / np.prod(vol)
+    assert columns == 4 and ratio <= 1.08
+
+
+def test_plan_stream_picks_z_with_xy():
+    """At CREMI's volume the narrower tile frees memory for a step of up to
+    62 (half the volume's z); the widest step on the warm step's grid, 60,
+    would cover 4 + 3 x 60 = 184 slices for 125.  The plan's step covers
+    132, and no step the budget allows there covers fewer."""
+    nc = get_net_config("3d_affs")
+    vol = (125, 1250, 1250)
+    budget = default_budget("cpu")
+    inc, s, warm_s = plan_stream(nc, vol, device="cpu")
+    xy_in = nc["input_shape"][1] + inc[1]
+
+    def covered(step):
+        return warm_s + -(-(vol[0] - warm_s) // step) * step
+
+    allowed = [a for a in range(24, min(64, vol[0] // 2) + 1, warm_s) if (a + 8) * xy_in**2 <= budget]
+    assert max(allowed) == 60 and covered(60) == 184
+    assert covered(s) == 132 == min(covered(a) for a in allowed)
+
+
+@pytest.mark.parametrize("z", [3, 40, 125, 1000])
+@pytest.mark.parametrize("yx", [(200, 200), (200, 2600), (900, 1200), (1250, 1250), (2600, 2600)])
+def test_plan_stream_tile_within_the_volume(z, yx):
+    """Over deep and shallow, narrow and wide volumes, at the default
+    budget: the tile never overhangs the volume, the plan keeps its
+    invariants and computes no more than the JAX package's."""
+    nc = get_net_config("3d_affs")
+    vol = (z, *yx)
+    budget = default_budget("cpu")
+    got = plan_stream(nc, vol, device="cpu")
+    _check_plan(nc, vol, budget, got)
+    want = jax_plan_stream(nc, vol, max_eff_voxels=budget)
+    assert _plan_cost(nc, vol, got) <= _plan_cost(nc, vol, want)
 
 
 def test_default_budget_on_the_cpu():
@@ -243,3 +355,16 @@ def test_smoke_flops_per_output_voxel():
     assert steady["output_voxels"] == 64 * 640 * 640
     inc, s, warm_s = plan_stream(nc, cs.ZSTREAM_SHAPE, device="cpu")
     assert (inc, s, warm_s) == ([0, 536, 536], 64, 4)
+
+
+def test_smoke_widest_stream_step():
+    """The smoke profiles the widest steady step the default budget admits:
+    the JAX package's plan (the widest tile that fits) over a volume far
+    wider than any tile."""
+    import chip_smoke as cs
+
+    nc = get_net_config("3d_affs")
+    budget = default_budget("cpu")
+    inc, s, _ = jax_plan_stream(nc, (10_000, 20_000, 20_000), max_eff_voxels=budget)
+    want = [s, nc["input_shape"][1] + inc[1], nc["input_shape"][2] + inc[2]]
+    assert cs.widest_stream_step(nc, budget) == want == [24, 1516, 1516]
