@@ -4,7 +4,9 @@ correctness verdict and the result line."""
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
+import re
 import sys
 
 from . import events as E
@@ -12,7 +14,10 @@ from .spec import Bench
 
 #: top-level module names that may not be loaded when the window closes
 FORBIDDEN = ("jax", "jaxlib", "flax", "bootstrapper_tpu")
-CONTROLS = ("reference_int8", "program_int8")
+#: the correctness check's controls: the reference in the program's place,
+#: computed in a lower precision (the value), or the program's own int8 path
+REFERENCE_CONTROLS = {"reference_int8": "int8", "reference_bf16": "bf16", "reference_tf32": "tf32"}
+CONTROLS = (*REFERENCE_CONTROLS, "program_int8")
 
 
 def parse(argv):
@@ -22,8 +27,8 @@ def parse(argv):
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     # the correctness check's controls, never part of a benchmark run: the
-    # reference in int8 in the program's place, or (a prediction cell) the
-    # program's own int8 path
+    # reference in int8, bf16 or with TF32 on in the program's place, or (a
+    # prediction cell) the program's own int8 path
     p.add_argument("--control", choices=CONTROLS, default=None)
     # tests drive a run on the CPU; a benchmark run is on the card
     p.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
@@ -34,6 +39,21 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def runner_of(traffic_name: str, kind: str):
+    """The module ``bmk.<kind>``, whose ``run`` drives a traffic of that
+    kind."""
+    runner = None
+    if re.fullmatch(r"[a-z][a-z0-9_]*", kind):
+        try:
+            runner = importlib.import_module(f"{__package__}.{kind}")
+        except ModuleNotFoundError as e:
+            if e.name != f"{__package__}.{kind}":
+                raise
+    if not callable(getattr(runner, "run", None)):
+        raise ValueError(f"traffic {traffic_name!r} is of no kind the harness drives: {kind!r}")
+    return runner
+
+
 def run_cell(bench: Bench, args, t_start: float) -> dict:
     """Run the cell; returns its runner's output."""
     import torch
@@ -41,13 +61,8 @@ def run_cell(bench: Bench, args, t_start: float) -> dict:
     cell = bench.cell(args.workload)
     cfg = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
-    if traffic["kind"] == "predict":
-        from . import predict as runner
-    elif traffic["kind"] == "train":
-        from . import train as runner
-    else:
-        raise ValueError(f"traffic {cell['traffic']!r} is of no kind the harness drives: {traffic['kind']!r}")
-    quantize = "int8" if args.control == "reference_int8" else None
+    runner = runner_of(cell["traffic"], traffic["kind"])
+    quantize = REFERENCE_CONTROLS.get(args.control)
     if args.control == "program_int8" and traffic["kind"] != "predict":
         raise ValueError("the program's int8 path predicts only")
     out = runner.run(cell, cfg, traffic, args.seed, args.seconds, bool(args.trace), args.device, t_start, {},
@@ -103,7 +118,7 @@ def main(argv, t_start: float, root: str) -> int:
         print(f"modules loaded that a run may not load: {found}", file=sys.stderr)
         return 3
     # the reference in the program's place runs no window
-    metrics = {} if args.control == "reference_int8" else metrics_of(bench, args.workload, out, bool(args.trace))
+    metrics = {} if args.control in REFERENCE_CONTROLS else metrics_of(bench, args.workload, out, bool(args.trace))
     correct, compared = verdict(bench.limits(args.workload), out["numbers"])
     device = {
         "platform": "gpu" if args.device.startswith("cuda") else "cpu",
@@ -120,7 +135,8 @@ def main(argv, t_start: float, root: str) -> int:
         device["window_s"] = (hi - lo) / 1e6
         result["breakdown"] = {"device_ops": E.top_device_ops(trace), "idle_gaps": E.idle_gaps(trace, lo, hi)}
     result["compared"] = compared
-    info = {k: out[k] for k in ("window_s", "check_s", "plan", "pass_s", "chunk_s", "detail") if k in out}
+    keys = ("window_s", "check_s", "plan", "pass_s", "chunk_s", "section_s", "first_mask_s", "setup_marks", "detail")
+    info = {k: out[k] for k in keys if k in out}
     info["numbers"] = out["numbers"]
     print(json.dumps({"info": info}), file=sys.stderr)
     for name, c in compared.items():

@@ -10,6 +10,8 @@ opened with ``record_function``).  ``bmk/trace.py`` makes it from
 
 from __future__ import annotations
 
+import bisect
+
 #: device events that are copies or fills, not kernels
 COPY_WORDS = ("memcpy", "memset")
 #: the program's conv kernel K1 (``csrc/conv3d.cu``), not the int8 one
@@ -44,9 +46,24 @@ def is_conv(e) -> bool:
     )
 
 
+#: words of the matrix products' kernel names: cuBLAS's and cuBLASLt's
+#: (``sm90_xmma_gemm_*``, ``ampere_sgemm_*``, ``cutlass_*``, ``gemv*``,
+#: their split-K reductions) and the CUTLASS kernels they launch
+GEMM_WORDS = ("gemm", "gemv", "xmma", "cutlass", "splitkreduce")
+
+
+def is_gemm(e) -> bool:
+    """A matrix product on the card (a library one: the port writes none)."""
+    low = e["name"].lower()
+    return any(w in low for w in GEMM_WORDS)
+
+
 def spans(events, name) -> list:
-    """``[(start, end)]`` of the harness's spans called ``name``."""
-    return [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("user") and e["name"] == name]
+    """``[(start, end)]`` of the host's user ranges called ``name`` (the
+    harness's and the program's spans): a device-side range of the same
+    name, which a CUDA trace can hold, is none."""
+    return [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e["dev"] == "cpu" and e.get("user") and e["name"] == name]
 
 
 def window(events):
@@ -83,19 +100,29 @@ def kernel_us(events, pred=lambda e: True) -> float:
     return sum(e["dur"] for e in device_events(events) if not is_copy(e) and pred(e))
 
 
+def host_op_corrs(events, intervals) -> set:
+    """The ``corr`` of each host op that began inside one of ``intervals``
+    (``[(start, end)]``).  A device event's ``link`` is the ``corr`` of the
+    host op (an ``aten::`` op) that launched it; the CUDA runtime calls in
+    between carry that id as their own ``link`` and a ``corr`` from another
+    count, which overlaps the ops' ids, so host events with a ``link`` of
+    their own are left out."""
+    inside = merged(intervals)
+    starts = [a for a, _ in inside]
+
+    def within(ts) -> bool:
+        i = bisect.bisect_right(starts, ts) - 1
+        return i >= 0 and ts < inside[i][1]
+
+    return {e["corr"] for e in events
+            if e["dev"] == "cpu" and not e.get("user") and not e.get("link") and e.get("corr") and within(e["ts"])}
+
+
 def launched_in(events, span_name) -> float:
-    """Summed durations of the device events launched by host ops that
-    began inside one of the spans called ``span_name``."""
-    sp = spans(events, span_name)
-    if not sp:
-        return 0.0
-    starts = sorted(sp)
-    corrs = set()
-    for e in events:
-        if e["dev"] != "cpu" or e.get("user") or not e.get("corr"):
-            continue
-        if any(a <= e["ts"] < b for a, b in starts):
-            corrs.add(e["corr"])
+    """Summed durations of the device events (kernels, copies, fills)
+    launched by host ops that began inside one of the host spans called
+    ``span_name`` (``host_op_corrs``)."""
+    corrs = host_op_corrs(events, spans(events, span_name))
     return sum(e["dur"] for e in device_events(events) if e.get("link") in corrs)
 
 

@@ -174,3 +174,58 @@ def bound_s(flops: float, nbytes: float) -> float:
     """The least time the card could take: operations at the bf16 peak or
     bytes at the memory rate, whichever is longer."""
     return max(flops / PEAK_BF16, nbytes / PEAK_BYTES)
+
+
+def sam_section_flops(cfg: dict, clicks: int) -> float:
+    """The least work of one section of a SAM proofreading session: the
+    image encoder once, the mask decoder ``clicks`` times, 2 operations a
+    multiply-add, as the architecture defines them (``cfg`` holds its
+    widths).  The encoder: the patch embedding; in a windowed block the
+    attention's projections and products on the window grid padded to a
+    multiple of the window (70 x 70 for 64 x 64 tokens in windows of 14),
+    the MLP on the tokens; in a global block all of it on the tokens; the
+    decomposed relative positions (one product per query, key row or
+    column and channel); the neck's two convs.  The decoder, for one point
+    and the padding point: the two-way blocks, the final attention, the
+    two transposed convs, the hypernetworks, the masks' product and the
+    IOU head.  Resizes, norms, softmax and elementwise work are left out;
+    they are no multiply-adds of the model."""
+    c, heads, p = cfg["encoder_dim"], cfg["encoder_heads"], cfg["patch_size"]
+    grid = cfg["img_size"] // p
+    tokens = grid * grid
+    win = cfg["window_size"]
+    padded = -(-grid // win) * win
+    enc = 2.0 * tokens * c * 3 * p * p  # the patch embedding
+    for i in range(cfg["encoder_depth"]):
+        if i in cfg["global_attn_indexes"]:
+            side, n_win = grid, 1
+        else:
+            side, n_win = win, (padded // win) ** 2
+        t = side * side
+        enc += 2.0 * n_win * t * c * 4 * c  # qkv and proj
+        enc += 2.0 * n_win * 2 * t * t * c  # q k^T and attn v, over the heads
+        enc += 2.0 * n_win * t * 2 * side * c  # the relative positions along h and w
+        enc += 2.0 * tokens * c * 8 * c  # the MLP
+    d = cfg["prompt_dim"]
+    enc += 2.0 * tokens * c * d + 2.0 * tokens * d * d * 9  # the neck
+
+    n_tok = 1 + cfg["num_mask_tokens"] + 2  # the output tokens, the point, the padding point
+
+    def cross(nq, nk, inner):
+        # projections of queries, keys, values and out; the two products
+        return 2.0 * (nq * d * inner + 2 * nk * d * inner + nq * inner * d + 2 * nq * nk * inner)
+
+    dec = 0.0
+    for i in range(cfg["decoder_depth"]):
+        dec += cross(n_tok, n_tok, d)  # self-attention
+        dec += cross(n_tok, tokens, d // 2)  # tokens to image
+        dec += 2.0 * n_tok * d * cfg["decoder_mlp_dim"] * 2
+        dec += cross(tokens, n_tok, d // 2)  # image to tokens
+    dec += cross(n_tok, tokens, d // 2)  # the final attention
+    up1, up2 = 4 * tokens, 16 * tokens
+    dec += 2.0 * up1 * d * (d // 4) + 2.0 * up2 * (d // 4) * (d // 8)
+    t = cfg["num_mask_tokens"]
+    dec += t * 2.0 * (d * d * 2 + d * d // 8) + 2.0 * t * (d // 8) * up2
+    h = cfg["iou_head_hidden_dim"]
+    dec += 2.0 * (d * h + h * h + h * t)
+    return enc + clicks * dec

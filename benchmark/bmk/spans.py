@@ -12,15 +12,7 @@ commit opens none, and its run then reports no such metric.
 
 from __future__ import annotations
 
-import bisect
-
 from . import events as E
-
-
-def host_spans(events, name) -> list:
-    """``[(start, end)]`` of the host's spans called ``name``."""
-    return [(e["ts"], e["ts"] + e["dur"]) for e in events
-            if e["dev"] == "cpu" and e.get("user") and e["name"] == name]
 
 
 def _steps(record: dict, kind: str, per: str):
@@ -28,7 +20,7 @@ def _steps(record: dict, kind: str, per: str):
     trace = record.get("trace")
     if record.get("kind") != kind or not trace:
         return None
-    n = len(host_spans(trace, per))
+    n = len(E.spans(trace, per))
     return (trace, n) if n else None
 
 
@@ -39,32 +31,19 @@ def host_ms_per(record: dict, kind: str, name: str, per: str):
     if got is None:
         return None
     trace, n = got
-    return sum(b - a for a, b in host_spans(trace, name)) / 1e3 / n
+    return sum(b - a for a, b in E.spans(trace, name)) / 1e3 / n
 
 
 def launches_per(record: dict, kind: str, name: str, per: str):
     """Device operations (kernels, copies, fills) whose host op began
     inside a span called ``name``, each once, wherever it ran on the card
     in time, over the number of spans called ``per``; None in a trace with
-    no device operation.
-
-    A device operation's ``link`` is the ``corr`` of the host op (an
-    ``aten::`` op) that launched it.  The CUDA runtime calls in between
-    carry that id as their own ``link`` and a ``corr`` of CUPTI's, from
-    another count that overlaps the ops' ids, so they are left out: a
-    launch call inside the span whose ``corr`` equals the ``link`` of a
-    device operation launched elsewhere would count it."""
+    no device operation.  Host ops are matched by ``E.host_op_corrs``,
+    never the runtime calls, whose ids would count a device operation
+    launched elsewhere."""
     got = _steps(record, kind, per)
     if got is None or not E.device_events(got[0]):
         return None
     trace, n = got
-    inside = E.merged(host_spans(trace, name))
-    starts = [a for a, _ in inside]
-
-    def within(ts) -> bool:
-        i = bisect.bisect_right(starts, ts) - 1
-        return i >= 0 and ts < inside[i][1]
-
-    corrs = {e["corr"] for e in trace
-             if e["dev"] == "cpu" and not e.get("user") and not e.get("link") and e.get("corr") and within(e["ts"])}
+    corrs = E.host_op_corrs(trace, E.spans(trace, name))
     return sum(1 for e in E.device_events(trace) if e.get("link") in corrs) / n

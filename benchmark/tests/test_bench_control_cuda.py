@@ -16,6 +16,8 @@ CONTROLS = [
     ("3d_affs.predict_stream", "program_int8"),
     ("3d_affs.predict_stream", "reference_int8"),
     ("3d_affs.train", "reference_int8"),
+    ("sam_vit_h.proofread_sections", "reference_bf16"),
+    ("sam_vit_h.proofread_sections", "reference_tf32"),
 ]
 
 

@@ -37,3 +37,22 @@ def test_conv_work_and_bound():
     assert flops == 2.0 * 16 * 44 * 44 * 1500 * 27 * 1500
     assert nbytes == 2 * (18 * 46 * 46 * 1500 + 27 * 1500 * 1500 + 16 * 44 * 44 * 1500)
     assert F.bound_s(flops, nbytes) == flops / F.PEAK_BF16
+
+
+def test_sam_vit_h_section():
+    """ViT-H's encoder by hand: 28 windowed blocks (qkv and proj on 70^2
+    padded tokens, the MLP on 64^2, 25 windows of 196 tokens' products and
+    relative positions), 4 global blocks on 4096 tokens, the patch
+    embedding and the neck: 5.96 TFLOP; a click's decoder a few GFLOP."""
+    with open(os.path.join(BENCH, "configs", "sam_vit_h.json")) as f:
+        cfg = json.load(f)
+    c, t = 1280, 4096
+    windowed = 2 * 4900 * c * 4 * c + 2 * t * c * 8 * c + 25 * 2 * (2 * 196 * 196 * c + 196 * 2 * 14 * c)
+    global_ = 2 * t * c * 12 * c + 2 * 2 * t * t * c + 2 * t * 2 * 64 * c
+    hand = 28 * windowed + 4 * global_ + 2 * t * c * 768 + 2 * t * c * 256 + 2 * t * 256 * 256 * 9
+    encoder = F.sam_section_flops(cfg, 0)
+    assert encoder == pytest.approx(hand, rel=1e-12)
+    assert encoder == pytest.approx(5.96e12, rel=0.01)
+    click = F.sam_section_flops(cfg, 1) - encoder
+    assert 1e9 < click < 1e10
+    assert F.sam_section_flops(cfg, 4) == pytest.approx(encoder + 4 * click)

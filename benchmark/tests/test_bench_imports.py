@@ -38,7 +38,7 @@ def test_no_harness_file_imports_jax_or_the_jax_package(path):
 
 def test_loading_the_reference_loads_neither_package():
     code = (
-        "import sys; sys.path[:0] = [%r]; import reference.unet, reference.train, reference.targets; "
+        "import sys; sys.path[:0] = [%r]; import reference.unet, reference.train, reference.targets, reference.sam; "
         "print(sorted({m.split('.')[0] for m in sys.modules}))" % BENCH
     )
     tops = set(eval(subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True).stdout))

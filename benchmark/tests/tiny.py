@@ -21,12 +21,31 @@ for p in (BENCH, REPO):
     if p not in sys.path:
         sys.path.insert(0, p)
 
+from bmk.spec import Bench  # noqa: E402
+
 PREDICT_CELLS = ["a.stream", "m.sections"]
 TRAIN_CELLS = ["a.train", "m.train"]
+PROOFREAD_CELLS = ["s.proofread"]
+#: the tiny cells of each traffic kind
+CELLS_OF_KIND = {"predict": PREDICT_CELLS, "train": TRAIN_CELLS, "proofread": PROOFREAD_CELLS}
 #: limits at test size, between what sound runs and the faults read
 PREDICT_LIMITS = {"share_ge2": 0.15, "share_ge8": 1e-4}
 TRAIN_LIMITS = {"start_gap": 0, "affs_target_gap": 0.0, "affs_weight_gap": 0.0, "loss1_gap": 2e-4, "grad_gap": 0.1,
                 "grad_dist_median": 0.015, "step_gap": 0.2}
+PROOFREAD_LIMITS = {"embed_gap": 1e-4, "logit_gap": 1e-4, "iou_gap": 1e-4, "label_flip_share": 1e-5}
+#: SAM at test size: a windowed and a global block, windows of 3 over a
+#: grid of 8 (so that they pad), a 128^2 image
+TINY_SAM = {"encoder_dim": 64, "encoder_depth": 2, "encoder_heads": 4, "global_attn_indexes": [1], "img_size": 128,
+            "patch_size": 16, "window_size": 3, "prompt_dim": 32, "decoder_heads": 4, "decoder_depth": 2,
+            "decoder_mlp_dim": 64, "num_mask_tokens": 4, "iou_head_hidden_dim": 32}
+
+
+def tiny_sam_config():
+    """TINY_SAM as the program's ``SamConfig``, for its ``PRESETS`` (the
+    session infers the variant from the encoder's width)."""
+    from bootstrapper_torch.models.sam import SamConfig
+
+    return SamConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in TINY_SAM.items()})
 
 
 def narrow(name: str) -> dict:
@@ -67,6 +86,12 @@ def make_root(root: str, volume=(20, 160, 160), sample=(24, 240, 240)) -> str:
         with open(os.path.join(b, "traffic", f"{name}.json"), "w") as f:
             json.dump(t, f)
 
+    sam = {"name": "tiny_sam", **TINY_SAM, "compute_dtype": "float32", "reduced": []}
+    with open(os.path.join(b, "configs", "tiny_sam.json"), "w") as f:
+        json.dump(sam, f)
+    spec["configs"].append({"name": "tiny_sam", "source": "test", "file": "benchmark/configs/tiny_sam.json",
+                            "reduced": [], "why": "test"})
+    traffic("proofread_sections", "tiny_proofread", volume=[6, 150, 150], cell_voxels=2000, clicks_per_section=4)
     traffic("predict_stream", "tiny_stream", volume=list(volume), check_blocks=6)
     traffic("predict_sections", "tiny_sections", volume=list(volume), check_blocks=6)
     traffic("train", "tiny_train", sample=list(sample), cell_voxels=2000, loader_threads=1, warm_steps=1,
@@ -76,13 +101,18 @@ def make_root(root: str, volume=(20, 160, 160), sample=(24, 240, 240)) -> str:
         {"name": "m.sections", "config": "tiny_2d_mtlsd", "traffic": "tiny_sections", "chips": 1, "why": "test"},
         {"name": "a.train", "config": "tiny_3d_affs", "traffic": "tiny_train", "chips": 1, "why": "test"},
         {"name": "m.train", "config": "tiny_2d_mtlsd", "traffic": "tiny_train", "chips": 1, "why": "test"},
+        {"name": "s.proofread", "config": "tiny_sam", "traffic": "tiny_proofread", "chips": 1, "why": "test"},
     ]
+    # each metric goes to the tiny cells of the kinds of the cells it lists
+    real = Bench(REPO)
+    kind = {c["name"]: real.traffic(c["traffic"])["kind"] for c in real.spec["workloads"]}
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = PREDICT_CELLS if "predict" in m["name"] else TRAIN_CELLS
+            m["workloads"] = [t for k in dict.fromkeys(kind[c] for c in m["workloads"]) for t in CELLS_OF_KIND[k]]
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(spec, f)
-    for cells, limits in ((PREDICT_CELLS, PREDICT_LIMITS), (TRAIN_CELLS, TRAIN_LIMITS)):
+    for cells, limits in ((PREDICT_CELLS, PREDICT_LIMITS), (TRAIN_CELLS, TRAIN_LIMITS),
+                          (PROOFREAD_CELLS, PROOFREAD_LIMITS)):
         for c in cells:
             with open(os.path.join(b, "limits", f"{c}.json"), "w") as f:
                 json.dump({"numbers": limits}, f)
